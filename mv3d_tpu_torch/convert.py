@@ -1,0 +1,100 @@
+"""Flax variables <-> PyTorch ``state_dict``s for the four MV3D subnets.
+
+The JAX package keeps its weights as ``{subnet: {"params": ...,
+"batch_stats": ...}}`` trees of arrays (``jax.tree.map(np.asarray,
+variables)``, or what ``SubnetCheckpointer.load`` returns per subnet). The
+port's modules carry flax's own names (``trunk/Bottleneck_0/Conv_1`` is
+``trunk.Bottleneck_0.Conv_1``), so the mapping is per leaf:
+
+  * conv ``kernel`` HWIO -> ``weight`` OIHW; dense ``kernel`` (in, out) ->
+    ``weight`` (out, in); ``bias`` -> ``bias``;
+  * BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and ``mean``/``var``
+    -> ``running_mean``/``running_var`` (plus a zero
+    ``num_batches_tracked``, which flax does not keep).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+_BN_INV = {v: k for k, v in _BN_LEAVES.items()}
+
+
+def _walk(tree: Mapping[str, Any], prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _is_bn(module_path) -> bool:
+    return module_path[-1].startswith("BatchNorm")
+
+
+def _kernel_to_torch(a: np.ndarray) -> np.ndarray:
+    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+
+
+def _kernel_to_flax(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+
+
+def subnet_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """One subnet's ``{"params", "batch_stats"}`` tree -> ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, arr in _walk(variables.get(collection, {})):
+            mod, leaf = path[:-1], path[-1]
+            a = np.asarray(arr, dtype=np.float32)
+            if _is_bn(mod):
+                name = _BN_LEAVES[leaf]
+            elif leaf == "kernel":
+                name, a = "weight", _kernel_to_torch(a)
+            elif leaf == "bias":
+                name = "bias"
+            else:
+                raise KeyError(f"unexpected leaf {'/'.join(path)}")
+            sd[".".join(mod + (name,))] = torch.tensor(
+                np.ascontiguousarray(a))
+            if _is_bn(mod) and leaf == "mean":
+                sd[".".join(mod + ("num_batches_tracked",))] = torch.tensor(0)
+    return sd
+
+
+def subnet_variables(state_dict: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, Any]:
+    """Inverse of :func:`subnet_state_dict` (``num_batches_tracked`` is
+    dropped): ``state_dict`` -> ``{"params", "batch_stats"}`` of f32
+    numpy arrays."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        *mod, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if _is_bn(mod):
+            leaf = _BN_INV[name]
+            collection = ("batch_stats" if name.startswith("running_")
+                          else "params")
+        elif name == "weight":
+            leaf, a, collection = "kernel", _kernel_to_flax(a), "params"
+        else:
+            leaf, collection = name, "params"
+        node = out[collection]
+        for p in mod:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return out
+
+
+def load_variables(model, variables: Mapping[str, Any]) -> None:
+    """Load a JAX ``{subnet: variables}`` tree into an ``MV3DNet``
+    (strict: every parameter and buffer must be matched)."""
+    for name, module in model.subnets.items():
+        module.load_state_dict(subnet_state_dict(variables[name]))

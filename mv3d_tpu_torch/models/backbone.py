@@ -1,0 +1,182 @@
+"""Backbone building blocks as ``nn.Module``s (NCHW inside).
+
+Port of ``mv3d_tpu/models/backbone.py``: ``ConvBnRelu``, ``DenseBnRelu``,
+the pre-activation ``Bottleneck``, ``space_to_depth`` and ``ResnetTiny``
+with the space-to-depth stems (``s2d_factor`` 2 and 4).
+
+Submodule names are flax's auto-names (``Conv_0``, ``BatchNorm_1``,
+``Bottleneck_3`` ...), so a flax variable path maps onto a ``state_dict``
+key one to one (:mod:`mv3d_tpu_torch.convert`).
+
+Numerics follow the JAX modules: a conv or dense layer runs in the dtype
+of its weights (the compute dtype, bf16 on the card; see
+``MV3DNet.__init__``), BatchNorm runs in f32, and the ReLU output is cast
+back to the compute dtype. Flax's ``"SAME"`` padding is reproduced
+exactly: convs here are stride 1 with odd kernels or 1x1 (symmetric), and
+the 3x3/2 max-pool pads (lo, hi) = (total//2, total - total//2) with -inf.
+
+Not ported (``NotImplementedError``): the 7x7/2 stem (``s2d_factor=0``),
+``backbone_block="basic"``, the bilinear ``Upsample2D`` deconv
+(``upsample_features``) and the split/prefolded stems of the folded views —
+ROADMAP A3 / A9.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pads(size: int, kernel: int, stride: int):
+    """Flax/XLA "SAME" (lo, hi) padding for one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def max_pool_same(x: torch.Tensor, kernel: int = 3,
+                  stride: int = 2) -> torch.Tensor:
+    """``nn.max_pool(x, (k, k), (s, s), padding="SAME")`` on NCHW."""
+    ph = same_pads(x.shape[2], kernel, stride)
+    pw = same_pads(x.shape[3], kernel, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
+
+
+def avg_pool_same(x: torch.Tensor, kernel: int = 2,
+                  stride: int = 2) -> torch.Tensor:
+    """``nn.avg_pool(x, (k, k), (s, s), padding="SAME")`` on NCHW: zero pad
+    counted in the divisor (flax ``count_include_pad=True``)."""
+    ph = same_pads(x.shape[2], kernel, stride)
+    pw = same_pads(x.shape[3], kernel, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.avg_pool2d(x, kernel, stride)
+
+
+def conv(in_c: int, out_c: int, kernel: int = 1, stride: int = 1,
+         bias: bool = False) -> nn.Conv2d:
+    """A conv whose symmetric padding equals flax "SAME" (stride 1 with an
+    odd kernel, or any 1x1)."""
+    if stride != 1 and kernel != 1:
+        raise NotImplementedError(
+            f"{kernel}x{kernel}/{stride} conv: only stride-1 or 1x1 convs "
+            f"are ported (ROADMAP A3)")
+    return nn.Conv2d(in_c, out_c, kernel, stride, padding=kernel // 2,
+                     bias=bias)
+
+
+def bn_relu(bn: nn.Module, x: torch.Tensor, dtype: torch.dtype):
+    """f32 BatchNorm + ReLU, cast back to the compute dtype."""
+    return F.relu(bn(x.to(torch.float32))).to(dtype)
+
+
+class ConvBnRelu(nn.Module):
+    def __init__(self, in_c: int, out_c: int, kernel: int = 3,
+                 stride: int = 1):
+        super().__init__()
+        self.Conv_0 = conv(in_c, out_c, kernel, stride)
+        self.BatchNorm_0 = nn.BatchNorm2d(out_c, eps=1e-5)
+
+    def forward(self, x):
+        dtype = self.Conv_0.weight.dtype
+        return bn_relu(self.BatchNorm_0, self.Conv_0(x.to(dtype)), dtype)
+
+
+class DenseBnRelu(nn.Module):
+    def __init__(self, in_f: int, out_f: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_f, out_f, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm1d(out_f, eps=1e-5)
+
+    def forward(self, x):
+        dtype = self.Dense_0.weight.dtype
+        return bn_relu(self.BatchNorm_0, self.Dense_0(x.to(dtype)), dtype)
+
+
+class Bottleneck(nn.Module):
+    """Pre-activation bottleneck block (He et al. 1603.05027)."""
+
+    def __init__(self, in_c: int, filters: int, stride: int = 1,
+                 plain_entry: bool = False):
+        super().__init__()
+        out_c = filters * 4
+        self.plain_entry = plain_entry
+        bns = [in_c] if not plain_entry else []
+        bns += [filters, filters]
+        for i, c in enumerate(bns):
+            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(c, eps=1e-5))
+        self.Conv_0 = conv(in_c, filters, 1, stride)
+        self.Conv_1 = conv(filters, filters, 3)
+        self.Conv_2 = conv(filters, out_c, 1)
+        self.has_shortcut = in_c != out_c or stride != 1
+        if self.has_shortcut:
+            self.Conv_3 = conv(in_c, out_c, 1, stride)
+
+    def forward(self, x):
+        dtype = self.Conv_0.weight.dtype
+        x = x.to(dtype)
+        bn = iter([getattr(self, f"BatchNorm_{i}")
+                   for i in range(2 if self.plain_entry else 3)])
+        h = x if self.plain_entry else bn_relu(next(bn), x, dtype)
+        h = bn_relu(next(bn), self.Conv_0(h), dtype)
+        h = bn_relu(next(bn), self.Conv_1(h), dtype)
+        h = self.Conv_2(h)
+        shortcut = self.Conv_3(x) if self.has_shortcut else x
+        return h + shortcut
+
+
+def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/f, W/f, C*f*f), channel ``(dy*f + dx)*C + c``;
+    trailing rows/cols are zero-padded to a multiple of ``factor``."""
+    b, h, w, c = x.shape
+    ph, pw = (-h) % factor, (-w) % factor
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+        h, w = h + ph, w + pw
+    x = x.reshape(b, h // factor, factor, w // factor, factor, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, h // factor, w // factor, factor * factor * c)
+
+
+class ResnetTiny(nn.Module):
+    """Stride-8 tiny bottleneck ResNet with a space-to-depth stem: factor 2
+    is s2d/2 + 3x3 conv + 3x3/2 max-pool, factor 4 is s2d/4 + 3x3 conv.
+    Input NHWC, output NCHW with ``base_filters * 2**(len(reps)-1) * 4``
+    channels."""
+
+    def __init__(self, in_c: int, s2d_factor: int,
+                 repetitions: Sequence[int] = (3, 4),
+                 base_filters: int = 64, block: str = "bottleneck"):
+        super().__init__()
+        if s2d_factor not in (2, 4):
+            raise NotImplementedError(
+                f"s2d_factor={s2d_factor}: only the space-to-depth stems "
+                f"(2, 4) are ported; the 7x7/2 stem is ROADMAP A3")
+        if block != "bottleneck":
+            raise NotImplementedError(
+                f"backbone_block={block!r}: only 'bottleneck' is ported "
+                f"(ROADMAP A3)")
+        self.s2d_factor = s2d_factor
+        self.ConvBnRelu_0 = ConvBnRelu(in_c * s2d_factor ** 2, base_filters)
+        filters, c, k = base_filters, base_filters, 0
+        for i, reps in enumerate(repetitions):
+            for j in range(reps):
+                stride = 2 if (j == 0 and i != 0) else 1
+                self.add_module(f"Bottleneck_{k}", Bottleneck(
+                    c, filters, stride, plain_entry=(i == 0 and j == 0)))
+                c, k = filters * 4, k + 1
+            filters *= 2
+        self.n_blocks = k
+        self.out_channels = c
+
+    def forward(self, x):
+        x = space_to_depth(x, self.s2d_factor).permute(0, 3, 1, 2)
+        x = self.ConvBnRelu_0(x)
+        if self.s2d_factor == 2:
+            x = max_pool_same(x, 3, 2)
+        for k in range(self.n_blocks):
+            x = getattr(self, f"Bottleneck_{k}")(x)
+        return x

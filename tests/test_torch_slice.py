@@ -1,0 +1,147 @@
+"""The whole port slice, points -> 3D detections, against the JAX package
+with the same (converted) weights: the tiny config of ``__graft_entry__``
+with the fused voxelizer (``pipeline.use_pallas_fused=True``, the Pallas
+sweep in interpret mode on the JAX side) and f32 compute.
+
+Tolerances: the live-detection mask is exact; boxes3d within atol 1e-3
+and probs within atol 1e-4 on live slots (slots outside the mask hold
+garbage on both sides); proposals' mask exact and rois within atol 1e-3.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _tiny_config
+from mv3d_tpu.models.mv3d_net import MV3DNet as JaxMV3DNet
+from mv3d_tpu.ops import voxelize as jvox
+from mv3d_tpu_torch.ops import voxelize as tvox
+from mv3d_tpu_torch.train.trainer import MV3D
+
+from test_torch_models import randomize_bn
+
+torch.set_num_threads(2)
+
+CFG = dataclasses.replace(
+    _tiny_config(),
+    model=dataclasses.replace(_tiny_config().model, compute_dtype="float32"),
+    pipeline=dataclasses.replace(_tiny_config().pipeline,
+                                 use_pallas_fused=True))
+THRESH = 0.05
+
+
+def _requests(seed, b=2):
+    """Clouds drawn as bench.py draws them (scaled to the tiny grid), with
+    a short second frame, and random rgb."""
+    rng = np.random.RandomState(seed)
+    n = CFG.pipeline.max_points
+    t = CFG.top
+    pts = np.stack([rng.uniform(t.x_min, t.x_max, (b, n)),
+                    rng.uniform(t.y_min, t.y_max, (b, n)),
+                    rng.uniform(t.z_min, t.z_max, (b, n)),
+                    rng.uniform(0, 1, (b, n))], axis=-1).astype(np.float32)
+    num = np.array([n, n - 300], np.int32)[:b]
+    rgb = rng.rand(b, *CFG.rgb_shape).astype(np.float32)
+    return pts, num, rgb
+
+
+@pytest.fixture(scope="module")
+def both():
+    jm = JaxMV3DNet(CFG)
+    variables = randomize_bn(jax.jit(jm.init_variables)(
+        jax.random.PRNGKey(0)), seed=5)
+
+    @jax.jit
+    def infer(v, points, num, rgb):
+        top, occ = jvox.lidar_to_top_batch(points, CFG, num, return_occ=True)
+        front = jvox.lidar_to_front_batch(points, CFG, num)
+        return jm.forward_inference(v, top, rgb, front,
+                                    score_threshold=THRESH, top_occ=occ)
+
+    return infer, variables, MV3D(CFG, variables=variables)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_points_to_detections_match_jax(both, seed):
+    infer, variables, port = both
+    pts, num, rgb = _requests(seed)
+    jdets, jprops = infer(variables, pts, num, rgb)
+    dets = port.predict_from_points(pts, num, rgb, score_threshold=THRESH)
+    m = np.asarray(jdets.mask)
+    assert m.sum() >= 1, "no live detection: the comparison would be empty"
+    assert dets.boxes3d.shape == (2, CFG.rpn.nms_post_topn, 8, 3)
+    np.testing.assert_array_equal(dets.mask.numpy(), m)
+    np.testing.assert_allclose(dets.boxes3d.numpy()[m],
+                               np.asarray(jdets.boxes3d)[m], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(dets.probs.numpy()[m],
+                               np.asarray(jdets.probs)[m], rtol=0, atol=1e-4)
+
+
+def test_proposals_match_jax(both):
+    infer, variables, port = both
+    pts, num, rgb = _requests(3)
+    _, jprops = infer(variables, pts, num, rgb)
+    p, n = torch.from_numpy(pts), torch.from_numpy(num)
+    top, occ = tvox.lidar_to_top_batch(p, CFG, n, return_occ=True)
+    with torch.no_grad():
+        _, props = port.model.forward_inference(
+            top, torch.from_numpy(rgb), None, score_threshold=THRESH,
+            top_occ=occ)
+    m = np.asarray(jprops.mask)
+    np.testing.assert_array_equal(props.mask.numpy(), m)
+    np.testing.assert_allclose(props.rois.numpy(), np.asarray(jprops.rois),
+                               rtol=0, atol=1e-3)
+
+
+def test_predict_from_views_matches_points(both):
+    """``predict`` on the port's own views gives ``predict_from_points``'
+    detections (the anchor filter then sums the view's channels instead of
+    reading the count occupancy: the same zero-set)."""
+    _, _, port = both
+    pts, num, rgb = _requests(4)
+    want = port.predict_from_points(pts, num, rgb, score_threshold=THRESH)
+    top = tvox.lidar_to_top_batch(torch.from_numpy(pts), CFG,
+                                  torch.from_numpy(num))
+    got = port.predict(top, None, rgb, score_threshold=THRESH)
+    assert want.mask.any()
+    assert torch.equal(got.mask, want.mask)
+    assert torch.equal(got.boxes3d, want.boxes3d)
+
+
+_NO_JAX = r"""
+import dataclasses, sys
+import numpy as np
+import mv3d_tpu_torch
+from mv3d_tpu_torch import convert
+from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, detect, nms,
+                                proposal, roi_align, voxelize, voxelize_sweep)
+from mv3d_tpu_torch.models import backbone, mv3d_net, nets
+from mv3d_tpu_torch.train.trainer import MV3D
+cfg = mv3d_tpu_torch.kitti_config()
+cfg = dataclasses.replace(
+    cfg, top=dataclasses.replace(cfg.top, x_max=16.0, y_min=-6.0, y_max=6.0,
+                                 x_div=0.2, y_div=0.2),
+    image_width=96, image_height=64)
+rng = np.random.RandomState(0)
+pts = np.stack([rng.uniform(0, 16, 512), rng.uniform(-6, 6, 512),
+                rng.uniform(-4, 0.8, 512), rng.uniform(0, 1, 512)], -1)
+dets = MV3D(cfg, seed=0).predict_from_points(
+    pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
+assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_never_imports_jax():
+    out = subprocess.run([sys.executable, "-c", _NO_JAX],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

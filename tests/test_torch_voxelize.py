@@ -1,0 +1,199 @@
+"""Port parity: the PyTorch voxelizer (its sweep's plain version on the CPU)
+against the JAX package, whose fused path runs the Pallas sweep in
+interpret mode, and against the numpy oracle.
+
+Tolerances: heights, intensity, count and occupancy are bit-exact; density
+within 1 ulp (the two ``log`` implementations may differ in the last
+bit); the front view within atol 5e-5 (sums and ``sqrt`` reassociate).
+The CUDA kernel against its plain version is in tests/test_torch_cuda.py.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from mv3d_tpu.config import kitti_config
+from mv3d_tpu.ops import voxelize as jvox
+from mv3d_tpu.ops import voxelize_ref
+from mv3d_tpu_torch.ops import voxelize as tvox
+from mv3d_tpu_torch.ops import voxelize_sweep
+
+torch.set_num_threads(2)
+
+CFG = kitti_config()
+SMALL = dataclasses.replace(
+    CFG, top=dataclasses.replace(CFG.top, x_max=8.0, y_min=-3.0, y_max=3.0),
+    pipeline=dataclasses.replace(CFG.pipeline, use_pallas_fused=True))
+
+
+def make_cloud(rng, n, cfg):
+    """One cloud around the crop box, with exact slice-boundary z values
+    and duplicated positions carrying different reflectance."""
+    return chip_smoke.make_cloud(rng, 1, n, cfg, tricky=True)[0]
+
+
+@pytest.fixture(scope="module")
+def clouds():
+    rng = np.random.RandomState(7)
+    raw = [make_cloud(rng, 3000, SMALL), make_cloud(rng, 2500, SMALL)]
+    padded = [jvox.pad_points(p, 4096) for p in raw]
+    batch = np.stack([p for p, _ in padded])
+    num = np.array([n for _, n in padded], np.int32)
+    return raw, batch, num
+
+
+@pytest.fixture(scope="module")
+def jax_views(clouds):
+    _, batch, num = clouds
+    top, occ = jvox.lidar_to_top_batch(batch, SMALL, num, return_occ=True)
+    front = jvox.lidar_to_front_batch(batch, SMALL, num)
+    return np.asarray(top), np.asarray(occ), np.asarray(front)
+
+
+def _torch_views(batch, num, cfg=SMALL):
+    pts = torch.from_numpy(batch)
+    n = torch.from_numpy(num)
+    top, occ = tvox.lidar_to_top_batch(pts, cfg, n, return_occ=True)
+    return top.numpy(), occ.numpy(), tvox.lidar_to_front_batch(
+        pts, cfg, n).numpy()
+
+
+def test_top_view_matches_jax_fused_sweep(clouds, jax_views):
+    _, batch, num = clouds
+    jtop, jocc, _ = jax_views
+    top, occ, _ = _torch_views(batch, num)
+    zn = SMALL.top.zn
+    assert top.shape == jtop.shape == (2, *SMALL.top.shape)
+    np.testing.assert_array_equal(top[..., :zn + 1], jtop[..., :zn + 1])
+    np.testing.assert_array_max_ulp(top[..., zn + 1], jtop[..., zn + 1],
+                                    maxulp=1)
+    np.testing.assert_array_equal(occ, jocc)
+
+
+def test_top_view_matches_numpy_oracle(clouds):
+    raw, batch, num = clouds
+    top, _, _ = _torch_views(batch, num)
+    zn = SMALL.top.zn
+    for i, p in enumerate(raw):
+        want = voxelize_ref.lidar_to_top_np(p, SMALL)
+        np.testing.assert_array_equal(top[i, ..., :zn + 1], want[..., :zn + 1])
+        np.testing.assert_array_max_ulp(top[i, ..., zn + 1], want[..., zn + 1],
+                                        maxulp=1)
+
+
+def test_front_view_matches_jax(clouds, jax_views):
+    raw, batch, num = clouds
+    _, _, jfront = jax_views
+    _, _, front = _torch_views(batch, num)
+    np.testing.assert_allclose(front, jfront, rtol=0, atol=5e-5)
+    np.testing.assert_allclose(
+        front[0], voxelize_ref.lidar_to_front_np(raw[0], SMALL),
+        rtol=0, atol=5e-5)
+
+
+def test_bf16_view_is_the_f32_view_rounded_once(clouds):
+    _, batch, num = clouds
+    bf16 = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
+        SMALL.pipeline, top_view_dtype="bfloat16"))
+    pts, n = torch.from_numpy(batch), torch.from_numpy(num)
+    top32, occ32 = tvox.lidar_to_top_batch(pts, SMALL, n, return_occ=True)
+    top16, occ16 = tvox.lidar_to_top_batch(pts, bf16, n, return_occ=True)
+    assert top16.dtype == torch.bfloat16
+    assert torch.equal(top16, top32.to(torch.bfloat16))
+    assert torch.equal(occ16, occ32)
+
+
+def test_nonzero_threshold_occupancy_matches_jax(clouds):
+    """remove_empty_thresh != 0 needs the true channel sum, not the count."""
+    _, batch, num = clouds
+    cfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
+        SMALL.pipeline, remove_empty_thresh=0.5))
+    _, want = jvox.lidar_to_top_batch(batch, cfg, num, return_occ=True)
+    _, got = tvox.lidar_to_top_batch(torch.from_numpy(batch), cfg,
+                                     torch.from_numpy(num), return_occ=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_num_points_masks_in_bounds_junk(clouds):
+    """Points past ``num_points`` are dropped even inside the crop box."""
+    raw, batch, num = clouds
+    junk = batch.copy()
+    junk[0, num[0]:] = make_cloud(np.random.RandomState(3),
+                                  junk.shape[1] - num[0], SMALL)
+    top, _, _ = _torch_views(junk, num)
+    clean, _, _ = _torch_views(batch, num)
+    np.testing.assert_array_equal(top, clean)
+
+
+def test_full_kitti_grid_shape_and_oracle(rng):
+    pts = make_cloud(rng, 5000, CFG)
+    padded, n = tvox.pad_points(pts, 8192)
+    top, occ = tvox.lidar_to_top_batch(torch.from_numpy(padded[None]), CFG,
+                                       return_occ=True)
+    assert top.shape == (1, 800, 600, 27) and occ.shape == (1, 800, 600)
+    want = voxelize_ref.lidar_to_top_np(pts, CFG)
+    np.testing.assert_array_equal(top[0, ..., :26].numpy(), want[..., :26])
+
+
+def test_sweep_plain_matches_bruteforce(rng):
+    """The plain sweep against a per-point Python loop of its definition,
+    including lowest-index tie-breaking on equal qz."""
+    n_cells, zn, n = 7, 3, 200
+    flat = rng.randint(0, n_cells * zn + 4, (2, n)).astype(np.int32)
+    hval = rng.choice([0.25, 0.5, 1.0], (2, n)).astype(np.float32)
+    refl = rng.uniform(0, 1, (2, n)).astype(np.float32)
+    h, c, r = voxelize_sweep.scatter_top_fused_plain(
+        torch.from_numpy(flat), torch.from_numpy(hval),
+        torch.from_numpy(refl), n_cells, zn)
+    for b in range(2):
+        heights = np.zeros(n_cells * zn, np.float32)
+        count = np.zeros(n_cells, np.float32)
+        inten = np.zeros(n_cells, np.float32)
+        best = np.full(n_cells, -1.0)
+        for i in range(n):
+            f = flat[b, i]
+            if f >= n_cells * zn:
+                continue
+            heights[f] = max(heights[f], hval[b, i])
+            cell = f // zn
+            count[cell] += 1
+            qz = np.float32(f % zn) + hval[b, i]
+            if qz > best[cell]:
+                best[cell], inten[cell] = qz, refl[b, i]
+        np.testing.assert_array_equal(h[b].numpy(), heights)
+        np.testing.assert_array_equal(c[b].numpy(), count)
+        np.testing.assert_array_equal(r[b].numpy(), inten)
+
+
+def test_cpu_tensors_take_the_plain_version(rng):
+    before = voxelize_sweep.scatter_top_fused_batched.launches
+    flat = torch.zeros(1, 8, dtype=torch.int32)
+    out = voxelize_sweep.scatter_top_fused_batched(
+        flat, torch.ones(1, 8), torch.ones(1, 8), 4, 2)
+    assert voxelize_sweep.scatter_top_fused_batched.launches == before
+    assert out[1][0, 0] == 8 and out[0][0, 0] == 1.0
+    with pytest.raises(ValueError):
+        voxelize_sweep.scatter_top_fused_kernel(
+            flat, torch.ones(1, 8), torch.ones(1, 8), 4, 2)
+
+
+@pytest.mark.parametrize("pipeline", [
+    {"view_layout": "s2d2"}, {"view_layout": "s2d2p"}])
+def test_unported_layouts_raise(pipeline):
+    cfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
+        SMALL.pipeline, **pipeline))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tvox.lidar_to_top_batch(torch.zeros(1, 16, 4), cfg)
+
+
+def test_aux_plane_and_didi_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tvox.lidar_to_top_batch(torch.zeros(1, 16, 4), SMALL,
+                                aux=torch.zeros(1, 80, 60, 2))
+    didi = dataclasses.replace(SMALL, dataset_type="didi")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tvox.lidar_to_top_batch(torch.zeros(1, 16, 4), didi)
