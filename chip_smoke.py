@@ -1,44 +1,69 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives ``mv3d_tpu_torch`` — never jax — through its main path, the
-lidar -> 3D-boxes inference of ``MV3D.predict_from_points`` at full KITTI
-width (top view 800x600x27, rgb 375x1242, 65,536 points per frame, 30,000
-anchors, 30 proposals per frame) with random weights from a seed:
+Drives ``mv3d_tpu_torch`` — never jax — through its two paths at full
+KITTI width (top view 800x600x27, rgb 375x1242, 65,536 points per frame,
+30,000 anchors) with random weights from a seed, and holds each of their
+hand-written kernels against its plain PyTorch version:
+
+  * serving: ``MV3D.predict_from_points`` (lidar -> 3D boxes, 30
+    proposals per frame) through the fused voxelizer sweep kernel
+    (``voxelize_sweep``);
+  * training: the staged ``Trainer`` (bf16 compute, f32 master weights)
+    fed by the port's ``BatchLoader``, whose prefetch thread computes the
+    BEV intensity/density plane on the host, so the card voxelizes only
+    the heights, through the heights scatter-max kernel
+    (``voxelize_heights``).
+
+Phases:
 
   1. require CUDA; print the card's name and power limit;
-  2. build the voxelizer sweep kernel from this checkout's source (nvcc);
-  3. hold the kernel against its plain PyTorch version at the main path's
-     shapes: bit-equal on the card and against the CPU;
-  4. serve three requests (B=2, distinct clouds) through
-     ``predict_from_points`` and check the kernel ran once per request,
-     the outputs' shape and finiteness, the card's top view and occupancy
-     against the CPU's, and a small f32 model on the card against the CPU;
-  5. time the kernel against its plain version (CUDA events), and the
-     serving path at B=1 and B=8: closed-loop requests, each waited for,
-     over three windows of SERVE_WINDOW_S seconds after a warm-up window
-     of SERVE_WARMUP_S seconds; per window
-     the frames/s and the median and p90 request latency, then the median
-     and the range of frames/s over the windows;
-  6. only with ``--profile DIR``: torch.profiler over a few requests at
-     B=1 and B=8; prints the card's busy time per request (union of kernel
-     intervals), its idle share against the serving median latency, the
-     requests' peak allocated memory and the ops with the most device
-     time, and
-     writes the profiler's table to ``DIR/profile_b{B}.txt``.
+  2. build both kernels from this checkout's sources (one nvcc each, in
+     parallel);
+  3. hold each kernel against its plain version at its path's shapes (B=2,
+     65,536 points per frame): bit-equal on the card and against the CPU;
+  4. serve three requests (B=2, distinct clouds) and check the sweep
+     kernel ran once per request, the outputs' shape and finiteness, the
+     card's top view and occupancy against the CPU's, and a small f32
+     model on the card against the CPU;
+  5. train at B=2 from an in-memory synthetic drive (raw-size clouds with
+     3-8 planted gt cars per frame): 5 steps of ``top_view_rpn``, then 5
+     of all subnets; check finite losses, one heights-kernel launch per
+     step, frozen subnets bit-unchanged and trained ones moved in stage 1,
+     BatchNorm statistics moved in every subnet that ran, and that a
+     checkpoint loaded into a fresh ``MV3D`` gives bit-equal detections;
+     then one small f32 training step on the card against the CPU;
+  6. time each kernel against its plain version and the one PyTorch call
+     that computes the same function, where there is one (CUDA events), at
+     B=1, 2 and 8; the serving path at B=1 and B=8 (closed loop, three
+     windows of SERVE_WINDOW_S seconds after a warm-up window of
+     SERVE_WARMUP_S seconds: per window frames/s and the median and p90
+     latency, then the median and range over the windows); the training
+     step at B=2 (three windows of TRAIN_WINDOW_STEPS steps after
+     TRAIN_WARMUP_STEPS: ms/step and frames/s, median and range) with its
+     peak allocated memory;
+  7. only with ``--profile DIR``: torch.profiler over a few requests at
+     B=1 and B=8 and a few training steps: the card's busy time per
+     request or step (union of kernel intervals), its idle share against
+     the median wall time, peak allocated memory and the ops with the
+     most device time; the profiler's tables go to DIR.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The line before the last is the kernels' JSON record; the last is
-``{"ok": true, "device": {...}}``. Run from the repository root:
+``{"ok": true, "device": {...}}``. Checkpoints and logs of the training
+phase go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the
+checkout and are removed. Run from the repository root:
 
     python3 chip_smoke.py [--profile DIR]
 
-``make_cloud`` and ``small_reference`` are shared with the port's tests.
+``make_cloud``, ``SynthDrive``, ``small_reference`` and
+``small_train_reference`` are shared with the port's tests.
 """
 
 import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -50,6 +75,12 @@ THRESH = 0.05
 # warm-up window
 SERVE_WINDOW_S = 5.0
 SERVE_WARMUP_S = 3.0
+# training steps per timing window, three windows, after the warm-up steps
+TRAIN_WINDOW_STEPS = 5
+TRAIN_WARMUP_STEPS = 3
+# the H100 SXM's HBM rate (NVIDIA's data sheet), for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg):
@@ -100,6 +131,70 @@ def make_cloud(rng, b, n, cfg, tricky: bool):
     return pts
 
 
+def car_corners(center, size, yaw):
+    """(8, 3) corners of an upright box, in the JAX package's
+    ``box3d_compose`` order: ``center`` is the bottom-face center,
+    ``size`` (h, w, l)."""
+    import numpy as np
+    h, w, l = size
+    xs = np.array([-l, -l, l, l, -l, -l, l, l]) / 2
+    ys = np.array([w, -w, -w, w, w, -w, -w, w]) / 2
+    zs = np.array([0, 0, 0, 0, h, h, h, h], dtype=np.float64)
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.stack([c * xs - s * ys, s * xs + c * ys, zs], -1) + center
+
+
+class SynthDrive:
+    """An in-memory synthetic drive for the port's ``BatchLoader``:
+    raw-size clouds drawn as bench.py draws them (``n_raw`` points
+    uniform in the crop box widened by 10 m in x and y and by 0.3-0.4 m in
+    z), uint8 rgb at ``cfg.rgb_shape``, and per frame ``cars`` (lo, hi) gt
+    cars (label 1) with 300 points planted inside each, so the RPN and
+    fusion targets have positives."""
+
+    def __init__(self, rng, cfg, n_frames: int, n_raw: int,
+                 cars=(3, 8)):
+        import numpy as np
+        from mv3d_tpu_torch.data.loader import Frame
+        t = cfg.top
+        h, w, _ = cfg.rgb_shape
+        self.frames = []
+        for i in range(n_frames):
+            cloud = np.stack([
+                rng.uniform(t.x_min - 10, t.x_max + 10, n_raw),
+                rng.uniform(t.y_min - 10, t.y_max + 10, n_raw),
+                rng.uniform(t.z_min - 0.3, t.z_max + 0.4, n_raw),
+                rng.uniform(0, 1, n_raw)], 1)
+            boxes, planted = [], []
+            for _ in range(rng.randint(cars[0], cars[1] + 1)):
+                size = (rng.uniform(1.4, 1.7), rng.uniform(1.5, 1.8),
+                        rng.uniform(3.5, 4.5))
+                center = (rng.uniform(t.x_min + 3, t.x_max - 3),
+                          rng.uniform(t.y_min + 3, t.y_max - 3), -1.7)
+                yaw = rng.uniform(-np.pi, np.pi)
+                boxes.append(car_corners(np.array(center), size, yaw))
+                local = rng.uniform(-0.5, 0.5, (300, 3)) * np.array(
+                    [size[2], size[1], size[0]]) + [0, 0, size[0] / 2]
+                c, s = np.cos(yaw), np.sin(yaw)
+                xy = np.stack([c * local[:, 0] - s * local[:, 1],
+                               s * local[:, 0] + c * local[:, 1]], 1)
+                planted.append(np.concatenate([
+                    xy + center[:2], local[:, 2:] + center[2],
+                    rng.uniform(0, 1, (300, 1))], 1))
+            points = np.concatenate([np.concatenate(planted), cloud])
+            self.frames.append(Frame(
+                tag=f"{i:05d}", points=points.astype(np.float32),
+                rgb=(rng.rand(h, w, 3) * 255).astype(np.uint8),
+                gt_boxes3d=np.stack(boxes).astype(np.float32),
+                gt_labels=np.ones(len(boxes), np.int32)))
+
+    def __len__(self):
+        return len(self.frames)
+
+    def load_frame(self, i):
+        return self.frames[i]
+
+
 def serve_window(model, batches, seconds: float):
     """Closed-loop serving for ``seconds``: one request at a time, each
     waited for, cycling through distinct batches. Returns the requests'
@@ -115,9 +210,12 @@ def serve_window(model, batches, seconds: float):
     return lat
 
 
-def profile_serving(model, batches, b: int, median_s: float, out_dir: str,
-                    card: str, n: int = 5):
-    """torch.profiler over ``n`` requests of ``batches`` (B = ``b``)."""
+def profile_calls(call, n: int, label: str, median_s: float, out_dir: str,
+                  card: str):
+    """torch.profiler over ``n`` calls of ``call``: the card's busy time
+    per call (union of kernel intervals), its idle share against the
+    median wall time ``median_s``, peak allocated memory and the aten ops
+    with the most device time; the table goes to ``out_dir``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -126,7 +224,7 @@ def profile_serving(model, batches, b: int, median_s: float, out_dir: str,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(n):
-            model.predict_from_points(*batches[i % len(batches)], THRESH)
+            call(i)
         torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20 - held_mib
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -147,14 +245,14 @@ def profile_serving(model, batches, b: int, median_s: float, out_dir: str,
                  key=lambda a: -getattr(a, key))
     total = sum(getattr(a, key) for a in ops)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"profile_b{b}.txt")
+    path = os.path.join(out_dir, f"profile_{label.replace(' ', '_')}.txt")
     with open(path, "w") as f:
-        f.write(f"{card}\nB={b}, {n} requests\n")
+        f.write(f"{card}\n{label}, {n} calls\n")
         f.write(avgs.table(sort_by=key, row_limit=60))
-    log(f"phase profile: B={b}: device busy {busy_ms:.2f} ms/request, idle "
-        f"share {1 - busy_ms / (median_s * 1e3):.2f} of the serving median "
-        f"latency {median_s * 1e3:.2f} ms, peak allocated {peak_mib:.0f} MiB "
-        f"above the {held_mib:.0f} MiB held before the requests"
+    log(f"phase profile: {label}: device busy {busy_ms:.2f} ms/call, idle "
+        f"share {1 - busy_ms / (median_s * 1e3):.2f} of the median wall "
+        f"time {median_s * 1e3:.2f} ms, peak allocated {peak_mib:.0f} MiB "
+        f"above the {held_mib:.0f} MiB held before the calls"
         f"; self device time of aten ops: " + ", ".join(
             f"{a.key} {getattr(a, key) / total:.0%}" for a in ops[:8])
         + f" [{card}] (table: {path})")
@@ -232,10 +330,228 @@ def small_reference(rng, dev):
                                  f"(> {tol}) between the card and the CPU")
 
 
+def _small_config():
+    """A small f32 KITTI config (16 m x 12 m at 0.2 m, 96x64 rgb) for the
+    card-against-CPU references."""
+    from mv3d_tpu_torch import kitti_config
+    cfg = kitti_config()
+    return dataclasses.replace(
+        cfg, top=dataclasses.replace(cfg.top, x_max=16.0, y_min=-6.0,
+                                     y_max=6.0, x_div=0.2, y_div=0.2),
+        model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+        pipeline=dataclasses.replace(cfg.pipeline, max_points=4096),
+        image_width=96, image_height=64)
+
+
+def small_train_reference(rng, dev, work_dir):
+    """One f32 training step of the RPN stage (the loader's host aux
+    plane, heights on the device) with the same weights, batch and draws
+    on the card and on the CPU: losses, target masks, gradients and the
+    updated parameters must agree.
+
+    Tolerances (those of tests/test_torch_train.py): target masks exact;
+    RPN losses rtol 1e-4; gradients within 1e-3 of each tensor's max |g|;
+    the updated parameters within rtol 2.4e-7 + atol 1e-8 where |g| is
+    above 1e-3 of the tensor's max (there the step's sign is certain).
+    The fusion losses are held to rtol 1e-4, or 1e-2 when an rgb ROI
+    corner moved by a pixel (counted and printed; see small_reference)."""
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch.data.loader import frames_to_batch
+    from mv3d_tpu_torch.models.mv3d_net import project_to_rgb_roi
+    from mv3d_tpu_torch.train.trainer import Trainer
+
+    cfg = _small_config()
+    drive = SynthDrive(rng, cfg, 2, 8000, cars=(2, 3))
+    batch = frames_to_batch(drive.frames, cfg)
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        tr = Trainer(None, train_targets=("top_view_rpn",), cfg=cfg,
+                     device=d, seed=1, checkpoint_dir=work_dir,
+                     log_dir=work_dir)
+        losses = tr.fit_iteration(batch)
+        rpn_tg, fus_tg = tr.last_targets
+        named = list(tr.model.top_rpn.named_parameters())
+        runs.append(dict(
+            losses=losses,
+            masks=[x.cpu() for x in (rpn_tg.cls_mask, rpn_tg.labels,
+                                     rpn_tg.pos_mask, fus_tg.mask,
+                                     fus_tg.labels, fus_tg.pos_mask)],
+            rgb=project_to_rgb_roi(fus_tg.rois3d.detach(), cfg).cpu(),
+            grads={n: q.grad.cpu() for n, q in named},
+            params={n: q.detach().cpu() for n, q in named}))
+    c, g = runs
+    for a, b in zip(c["masks"], g["masks"]):
+        if not torch.equal(a, b):
+            raise AssertionError("small training step: target masks differ "
+                                 "between the card and the CPU")
+    if not c["masks"][2].any() or not c["masks"][5].any():
+        raise AssertionError("small training step: no positive target")
+    moved = int((c["rgb"] != g["rgb"]).sum())
+    fuse_tol = 1e-4 if moved == 0 else 1e-2
+    errs = {k: abs(g["losses"][k] - v) / abs(v)
+            for k, v in c["losses"].items()}
+    for k, e in errs.items():
+        tol = 1e-4 if k.startswith("top") else fuse_tol
+        if not e <= tol:
+            raise AssertionError(f"small training step: {k} differs by "
+                                 f"rel {e} (> {tol})")
+    g_err = p_err = 0.0
+    n_cmp = 0
+    for n, gc in c["grads"].items():
+        mx = gc.abs().max().item()
+        e = (g["grads"][n] - gc).abs().max().item()
+        if not e <= 1e-3 * mx:
+            raise AssertionError(f"small training step: gradient of {n} "
+                                 f"differs by {e} (> 1e-3 * {mx})")
+        g_err = max(g_err, e / mx if mx else 0.0)
+        sure = gc.abs() > 1e-3 * mx
+        pc, pg = c["params"][n][sure], g["params"][n][sure]
+        if not torch.allclose(pg, pc, rtol=2.4e-7, atol=1e-8):
+            raise AssertionError(f"small training step: updated {n} "
+                                 f"differs between the card and the CPU")
+        p_err = max(p_err, (pg - pc).abs().max().item() if sure.any()
+                    else 0.0)
+        n_cmp += int(sure.sum())
+    log("phase train-reference: small f32 RPN-stage step, card vs CPU: "
+        f"same target masks ({int(c['masks'][2].sum())} positive anchors, "
+        f"{int(c['masks'][5].sum())} positive rois); loss rel diffs "
+        + ", ".join(f"{k} {e:.2g}" for k, e in errs.items())
+        + f"; gradients max |diff| / max |g| {g_err:.2g} (tol 1e-3); "
+        f"updated params max |diff| {p_err:.3g} over {n_cmp} entries "
+        f"(tol rtol 2.4e-7 + atol 1e-8); rgb ROI corners moved: {moved}")
+
+
+def _snapshot(module):
+    return ([q.detach().clone() for q in module.parameters()],
+            [b.detach().clone() for n, b in module.named_buffers()
+             if n.endswith(("running_mean", "running_var"))])
+
+
+def _same(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def train_phase(cfg, dev, rng, work_dir, card):
+    """The training path at full width: stage 1 (``top_view_rpn``) and
+    stage 2 (all subnets), 5 steps each through ``Trainer.__call__``, fed
+    by a ``BatchLoader`` over a synthetic drive; then the checkpoint round
+    trip. Returns (trainer, loader, heights launches) for the timings."""
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch.data.loader import BatchLoader
+    from mv3d_tpu_torch.models.nets import SUBNET_NAMES
+    from mv3d_tpu_torch.ops import voxelize_heights as vh
+    from mv3d_tpu_torch.ops import voxelize_sweep as sweep
+    from mv3d_tpu_torch.train.trainer import MV3D, Trainer
+
+    t0 = time.time()
+    drive = SynthDrive(rng, cfg, 8, 110000)
+    loader = BatchLoader(drive, cfg, batch_size=2, seed=0)
+    kw = dict(cfg=cfg, device=dev, checkpoint_dir=work_dir,
+              log_dir=work_dir)
+    tr1 = Trainer(loader, train_targets=("top_view_rpn",), seed=0, **kw)
+    before = {n: _snapshot(m) for n, m in tr1.model.subnets.items()}
+    log(f"phase train: synthetic drive of {len(drive)} frames and the "
+        f"trainer ready in {time.time() - t0:.1f} s")
+
+    vh.scatter_max_batched.launches = 0
+    sweep.scatter_top_fused_batched.launches = 0
+    t0 = time.time()
+    last1 = tr1(max_iter=5)
+    torch.cuda.synchronize()
+    launches1 = vh.scatter_max_batched.launches
+    after = {n: _snapshot(m) for n, m in tr1.model.subnets.items()}
+    if launches1 != 5 or sweep.scatter_top_fused_batched.launches:
+        raise AssertionError(f"stage 1: heights kernel launched "
+                             f"{launches1} times in 5 steps (sweep "
+                             f"{sweep.scatter_top_fused_batched.launches})")
+    if not np.isfinite(list(last1.values())).all():
+        raise AssertionError(f"stage 1: non-finite losses {last1}")
+    for n in SUBNET_NAMES:
+        params_same = _same(before[n][0], after[n][0])
+        stats_same = _same(before[n][1], after[n][1])
+        if (n == "top_view_rpn") == params_same:
+            raise AssertionError(f"stage 1: {n} params "
+                                 f"{'unchanged' if params_same else 'moved'}")
+        if (n != "front_feature") == stats_same:
+            raise AssertionError(f"stage 1: {n} BatchNorm statistics "
+                                 f"{'unchanged' if stats_same else 'moved'}")
+    log(f"phase train: stage 1 (top_view_rpn) 5 steps of B=2 in "
+        f"{time.time() - t0:.1f} s, heights kernel launches {launches1}, "
+        f"last losses " + ", ".join(f"{k} {v:.4f}" for k, v in last1.items())
+        + "; frozen subnets' params bit-unchanged, top_view_rpn moved; "
+        "BatchNorm statistics moved in top_view_rpn, image_feature and "
+        "fusion (front_feature does not run)")
+
+    tr2 = Trainer(loader, seed=0, variables=tr1.get_variables(),
+                  log_tag="stage2", **kw)
+    del tr1
+    before = {n: _snapshot(m) for n, m in tr2.model.subnets.items()}
+    vh.scatter_max_batched.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    last2 = tr2(max_iter=5)
+    torch.cuda.synchronize()
+    launches2 = vh.scatter_max_batched.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = {n: _snapshot(m) for n, m in tr2.model.subnets.items()}
+    if launches2 != 5:
+        raise AssertionError(f"stage 2: heights kernel launched {launches2}"
+                             f" times in 5 steps")
+    if not np.isfinite(list(last2.values())).all():
+        raise AssertionError(f"stage 2: non-finite losses {last2}")
+    for n in ("top_view_rpn", "image_feature", "fusion"):
+        if _same(before[n][0], after[n][0]) or _same(before[n][1],
+                                                      after[n][1]):
+            raise AssertionError(f"stage 2: {n} params or statistics did "
+                                 f"not move")
+    log(f"phase train: stage 2 (all subnets) 5 steps of B=2 in "
+        f"{time.time() - t0:.1f} s, heights kernel launches {launches2}, "
+        f"last losses " + ", ".join(f"{k} {v:.4f}" for k, v in last2.items())
+        + f"; every subnet that ran moved; peak allocated {peak_gib:.2f} "
+        f"GiB [{card}]")
+
+    # the loop saved every subnet at its end: load them into a fresh MV3D
+    fresh = MV3D(cfg, device=dev, seed=7, checkpoint_dir=work_dir,
+                 log_tag="stage2", log_dir=work_dir)
+    fresh.load_weights()
+    batch = loader.load()
+    # threshold 0: ten steps teach the random head to say "background",
+    # and every roi must reach NMS for the comparison to hold something
+    args = (batch["points"], batch["num_points"], batch["rgb"], 0.0)
+    want = tr2.predict_from_points(*args, top_aux=batch["top_aux"])
+    got = fresh.predict_from_points(*args, top_aux=batch["top_aux"])
+    torch.cuda.synchronize()
+    for k in ("mask", "probs", "boxes3d"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"checkpoint round trip: {k} differs")
+    if not want.mask.any():
+        raise AssertionError("checkpoint round trip: no live detection")
+    log(f"phase train: checkpoint of stage 2 loaded into a fresh MV3D: "
+        f"detections bit-equal ({int(want.mask.sum())} live, from the "
+        f"host aux plane + heights kernel)")
+    return tr2, loader, launches1 + launches2
+
+
+def kernel_bounds(b, n_points, n_cells, zn):
+    """Least card time (ms) of each kernel's work at batch ``b``: its bytes
+    (each input read once, each output written once) over the HBM rate;
+    the work is a few integer ops per byte, far below the card's peak
+    rate, so bytes bound both."""
+    n_flat = n_cells * zn
+    sweep_bytes = b * (n_points * 12 + n_flat * 4 + n_cells * 8)
+    heights_bytes = b * (n_points * 8 + n_flat * 4)
+    return {"voxelize_sweep": sweep_bytes / HBM_BYTES_PER_S * 1e3,
+            "voxelize_heights": heights_bytes / HBM_BYTES_PER_S * 1e3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile the serving path; write tables here")
+                    help="also profile serving and training; write tables "
+                         "here")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -246,7 +562,9 @@ def main(argv=None) -> int:
 
     import numpy as np
     from mv3d_tpu_torch import kitti_config
+    from mv3d_tpu_torch.ops import cuda_build
     from mv3d_tpu_torch.ops import voxelize as vox
+    from mv3d_tpu_torch.ops import voxelize_heights as vh
     from mv3d_tpu_torch.ops import voxelize_sweep as sweep
     from mv3d_tpu_torch.train.trainer import MV3D
 
@@ -254,46 +572,87 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = kitti_config()
-    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+    serve_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
         cfg.pipeline, use_pallas_fused=True))
+    # the JAX package's training configuration: host aux plane, heights
+    # through the Pallas kernel on the accelerator
+    train_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, host_aux_channels=True, use_pallas_heights=True))
     t = cfg.top
     n_cells, zn, n_pts = t.xn * t.yn, t.zn, cfg.pipeline.max_points
+    n_flat = n_cells * zn
     rng = np.random.RandomState(0)
+    work_dirs = [os.path.join(ROOT, d, "chip_smoke")
+                 for d in ("checkpoint", "log")]
+    for d in work_dirs:
+        shutil.rmtree(d, ignore_errors=True)
 
-    # -- 2. build --------------------------------------------------------
+    # -- 2. build both kernels, one nvcc each, in parallel ---------------
     t0 = time.time()
-    sweep.build_library()
+    cuda_build.build_libraries([sweep.SOURCE, vh.SOURCE])
     sweep._library()
-    log(f"phase build: voxelize_sweep built in {time.time() - t0:.2f} s")
+    vh._library()
+    log(f"phase build: voxelize_sweep and voxelize_heights built in "
+        f"{time.time() - t0:.2f} s")
 
-    # -- 3. kernel vs plain at the main path's shapes --------------------
-    def sweep_inputs(b, device):
+    # -- 3. each kernel against its plain version -------------------------
+    def prep(b, device):
         pts = torch.from_numpy(make_cloud(rng, b, n_pts, cfg, tricky=True))
         _, _, flat, val, refl = vox._top_prep(pts.to(device), cfg, None)
-        refl = torch.where(flat < n_cells * zn, refl, 0.0)
-        return flat, val, refl
+        return flat, val, torch.where(flat < n_flat, refl, 0.0)
 
-    flat, val, refl = sweep_inputs(2, torch.device("cpu"))
+    flat, val, refl = prep(2, torch.device("cpu"))
     want = sweep.scatter_top_fused_plain(flat, val, refl, n_cells, zn)
     args = (flat.to(dev), val.to(dev), refl.to(dev), n_cells, zn)
     got = sweep.scatter_top_fused_kernel(*args)
     plain = sweep.scatter_top_fused_plain(*args)
     torch.cuda.synchronize()
-    max_err = 0.0
+    sweep_err = 0.0
     for name, g, p, w in zip(("heights", "count", "intensity"), got, plain,
                              want):
         if not (torch.equal(g, p) and torch.equal(g.cpu(), w)):
             raise AssertionError(f"sweep kernel {name} differs from its "
                                  f"plain version")
-        max_err = max(max_err, (g - p).abs().max().item())
-    log(f"phase kernel-vs-plain: B=2 N={n_pts} heights/count/intensity "
-        f"bit-equal to the plain version on the card and on the CPU "
-        f"(occupied cells {int((want[1] > 0).sum())})")
-    kernel_ms = cuda_ms(lambda: sweep.scatter_top_fused_kernel(*args))
-    plain_ms = cuda_ms(lambda: sweep.scatter_top_fused_plain(*args))
+        sweep_err = max(sweep_err, (g - p).abs().max().item())
+    log(f"phase kernel-vs-plain: voxelize_sweep B=2 N={n_pts} "
+        f"heights/count/intensity bit-equal to the plain version on the "
+        f"card and on the CPU (occupied cells {int((want[1] > 0).sum())})")
+    want_h = vh.scatter_max_plain(flat, val, n_flat)
+    hargs = (flat.to(dev), val.to(dev), n_flat)
+    got_h = vh.scatter_max_kernel(*hargs)
+    plain_h = vh.scatter_max_plain(*hargs)
+    frame = torch.arange(2, device=dev)[:, None] * n_flat
+    lib_idx = torch.where(hargs[0] < n_flat, hargs[0].long() + frame,
+                          2 * n_flat).reshape(-1)
 
-    # -- 4. serve three requests through the main path -------------------
-    model = MV3D(cfg, device=dev, seed=0)
+    def heights_library(idx=lib_idx, v=hargs[1].reshape(-1),
+                        n=2 * n_flat):
+        return torch.zeros(n + 1, device=dev).scatter_reduce_(0, idx, v,
+                                                              "amax")
+
+    lib_h = heights_library()
+    torch.cuda.synchronize()
+    if not (torch.equal(got_h, plain_h) and torch.equal(got_h.cpu(), want_h)
+            and torch.equal(got_h.reshape(-1), lib_h[:-1])):
+        raise AssertionError("heights kernel differs from its plain "
+                             "version or the scatter_reduce_ call")
+    heights_err = (got_h - plain_h).abs().max().item()
+    log(f"phase kernel-vs-plain: voxelize_heights B=2 N={n_pts} "
+        f"n_flat={n_flat} bit-equal to the plain version on the card and "
+        f"on the CPU, and to one scatter_reduce_ call (nonzero "
+        f"{int((want_h > 0).sum())})")
+    timed = {"voxelize_sweep": (
+                 cuda_ms(lambda: sweep.scatter_top_fused_kernel(*args)),
+                 cuda_ms(lambda: sweep.scatter_top_fused_plain(*args)),
+                 None),
+             "voxelize_heights": (
+                 cuda_ms(lambda: vh.scatter_max_kernel(*hargs)),
+                 cuda_ms(lambda: vh.scatter_max_plain(*hargs)),
+                 cuda_ms(heights_library))}
+    del got, plain, got_h, plain_h, lib_h, lib_idx
+
+    # -- 4. serve three requests through the serving path ----------------
+    model = MV3D(serve_cfg, device=dev, seed=0)
     requests = [(make_cloud(rng, 2, n_pts, cfg, tricky=False),
                  np.full(2, n_pts, np.int32),
                  rng.rand(2, *cfg.rgb_shape).astype(np.float32))
@@ -302,10 +661,10 @@ def main(argv=None) -> int:
     outs = [model.predict_from_points(p, n, r, THRESH)
             for p, n, r in requests]
     torch.cuda.synchronize()
-    launches = sweep.scatter_top_fused_batched.launches
-    if launches != len(requests):
-        raise AssertionError(f"sweep kernel launched {launches} times for "
-                             f"{len(requests)} requests")
+    serve_launches = sweep.scatter_top_fused_batched.launches
+    if serve_launches != len(requests):
+        raise AssertionError(f"sweep kernel launched {serve_launches} "
+                             f"times for {len(requests)} requests")
     for dets in outs:
         if tuple(dets.boxes3d.shape) != (2, cfg.rpn.nms_post_topn, 8, 3):
             raise AssertionError(f"boxes3d shape {tuple(dets.boxes3d.shape)}")
@@ -313,12 +672,13 @@ def main(argv=None) -> int:
                 and torch.isfinite(dets.probs).all()):
             raise AssertionError("non-finite detections")
     log(f"phase serve: 3 requests of B=2 at full KITTI width, sweep kernel "
-        f"launches {launches}, live detections "
+        f"launches {serve_launches}, live detections "
         f"{[int(d.mask.sum()) for d in outs]}")
 
     pts0 = torch.from_numpy(requests[0][0][:1])
-    top_c, occ_c = vox.lidar_to_top_batch(pts0, cfg, return_occ=True)
-    top_g, occ_g = vox.lidar_to_top_batch(pts0.to(dev), cfg, return_occ=True)
+    top_c, occ_c = vox.lidar_to_top_batch(pts0, serve_cfg, return_occ=True)
+    top_g, occ_g = vox.lidar_to_top_batch(pts0.to(dev), serve_cfg,
+                                          return_occ=True)
     if not (torch.equal(top_g[..., :zn + 1].cpu(), top_c[..., :zn + 1])
             and torch.equal(occ_g.cpu(), occ_c)):
         raise AssertionError("top view/occupancy on the card differ from "
@@ -331,16 +691,39 @@ def main(argv=None) -> int:
 
     small_reference(rng, dev)
 
-    # -- 5. timings --------------------------------------------------------
-    times = {}
+    # -- 5. train at full width, then a small step against the CPU -------
+    trainer, loader, train_launches = train_phase(
+        train_cfg, dev, rng, work_dirs[0], card)
+    small_train_reference(rng, dev, os.path.join(work_dirs[0], "small"))
+
+    # -- 6. timings --------------------------------------------------------
+    bounds = {b: kernel_bounds(b, n_pts, n_cells, zn) for b in (1, 2, 8)}
+    for name, (k_ms, p_ms, l_ms) in timed.items():
+        log(f"phase timing: {name} B=2: kernel {k_ms * 1e3:.1f} us, plain "
+            f"{p_ms * 1e3:.1f} us, library call "
+            + (f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none")
+            + f", bound {bounds[2][name] * 1e3:.1f} us [{card}]")
     for b in (1, 8):
-        f, v, r = sweep_inputs(b, dev)
-        times[b] = (cuda_ms(lambda: sweep.scatter_top_fused_kernel(
-                        f, v, r, n_cells, zn)),
-                    cuda_ms(lambda: sweep.scatter_top_fused_plain(
-                        f, v, r, n_cells, zn)))
-        log(f"phase timing: sweep B={b}: kernel {times[b][0] * 1e3:.1f} us, "
-            f"plain {times[b][1] * 1e3:.1f} us [{card}]")
+        f, v, r = prep(b, dev)
+        idx = torch.where(f < n_flat, f.long() + torch.arange(
+            b, device=dev)[:, None] * n_flat, b * n_flat).reshape(-1)
+        k1, p1 = (cuda_ms(lambda: sweep.scatter_top_fused_kernel(
+                      f, v, r, n_cells, zn)),
+                  cuda_ms(lambda: sweep.scatter_top_fused_plain(
+                      f, v, r, n_cells, zn)))
+        k3, p3, l3 = (cuda_ms(lambda: vh.scatter_max_kernel(f, v, n_flat)),
+                      cuda_ms(lambda: vh.scatter_max_plain(f, v, n_flat)),
+                      cuda_ms(lambda: torch.zeros(
+                          b * n_flat + 1, device=dev).scatter_reduce_(
+                              0, idx, v.reshape(-1), "amax")))
+        log(f"phase timing: voxelize_sweep B={b}: kernel {k1 * 1e3:.1f} us, "
+            f"plain {p1 * 1e3:.1f} us, bound "
+            f"{bounds[b]['voxelize_sweep'] * 1e3:.1f} us [{card}]")
+        log(f"phase timing: voxelize_heights B={b}: kernel {k3 * 1e3:.1f} "
+            f"us, plain {p3 * 1e3:.1f} us, scatter_reduce_ {l3 * 1e3:.1f} "
+            f"us, bound {bounds[b]['voxelize_heights'] * 1e3:.1f} us "
+            f"[{card}]")
+        del f, v, r, idx
     for b in (1, 8):
         batches = [(torch.from_numpy(make_cloud(rng, b, n_pts, cfg, False)
                                      ).to(dev),
@@ -362,15 +745,54 @@ def main(argv=None) -> int:
             f"median of 3 windows (range {min(fps):.2f}-{max(fps):.2f}) "
             f"[{card}]")
         if opts.profile:
-            profile_serving(model, batches, b, float(np.median(medians)),
-                            opts.profile, card)
+            profile_calls(
+                lambda i: model.predict_from_points(
+                    *batches[i % len(batches)], THRESH),
+                5, f"serving B={b}", float(np.median(medians)),
+                opts.profile, card)
+        del batches
+    del model
 
-    log(json.dumps({"kernels": [{
-        "name": "voxelize_sweep", "route": "cuda",
-        "source": "mv3d_tpu_torch/csrc/voxelize_sweep.cu",
-        "replaces": "mv3d_tpu/ops/voxelize_pallas.py:220",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    for _ in range(TRAIN_WARMUP_STEPS):
+        trainer.fit_iteration(loader.load())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for w in range(3):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_WINDOW_STEPS):
+            trainer.fit_iteration(loader.load())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) / TRAIN_WINDOW_STEPS * 1e3)
+        log(f"phase timing: train B=2 window {w + 1}/3: "
+            f"{step_ms[-1]:.1f} ms/step, {2e3 / step_ms[-1]:.2f} frames/s "
+            f"[{card}]")
+    med = float(np.median(step_ms))
+    log(f"phase timing: train B=2 (all subnets, bf16, host aux plane): "
+        f"{med:.1f} ms/step, {2e3 / med:.2f} frames/s, median of 3 windows "
+        f"of {TRAIN_WINDOW_STEPS} steps (range {min(step_ms):.1f}-"
+        f"{max(step_ms):.1f} ms/step); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    if opts.profile:
+        profile_calls(lambda i: trainer.fit_iteration(loader.load()), 3,
+                      "train B=2 step", med / 1e3, opts.profile, card)
+    loader.close()
+    for d in work_dirs:
+        shutil.rmtree(d, ignore_errors=True)
+
+    record = {"voxelize_sweep": dict(
+                  source="mv3d_tpu_torch/csrc/voxelize_sweep.cu",
+                  replaces="mv3d_tpu/ops/voxelize_pallas.py:220",
+                  launches=serve_launches, max_abs_err=sweep_err),
+              "voxelize_heights": dict(
+                  source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
+                  replaces="mv3d_tpu/ops/voxelize_pallas.py:46",
+                  launches=train_launches, max_abs_err=heights_err)}
+    log(json.dumps({"kernels": [dict(
+        name=name, route="cuda", **rec, ms=timed[name][0],
+        plain_ms=timed[name][1], bound_ms=bounds[2][name],
+        bound_by="bytes", library_ms=timed[name][2])
+        for name, rec in record.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,14 @@
-"""mv3d_tpu_torch — the MV3D lidar -> 3D-boxes inference path in PyTorch,
-with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""mv3d_tpu_torch — MV3D in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a): lidar -> 3D-boxes inference and staged training.
 
 A port of :mod:`mv3d_tpu` (the JAX/TPU package, which stays the reference).
-Module names mirror it: ``ops/`` (voxelizer and its sweep kernel, anchors,
-boxes, NMS, proposals, ROI-align, detection decode), ``models/`` (trunks,
-subnets, ``MV3DNet``), ``train/trainer.py`` (the ``MV3D`` inference API)
-and ``convert.py`` (flax variables -> ``state_dict``). It imports torch and
-never jax; the only ``mv3d_tpu`` module it uses is the numpy-only
-``mv3d_tpu.config``.
+Module names mirror it: ``config.py`` (its own copy of the config tree),
+``ops/`` (voxelizer and its two kernels, anchors, boxes, NMS, proposals,
+ROI-align, detection decode), ``models/`` (trunks, subnets, ``MV3DNet``
+with its training forward), ``data/`` (host aux planes, batch loader),
+``train/`` (targets, losses, augmentation, checkpoints, the ``MV3D`` and
+``Trainer`` API) and ``convert.py`` (flax variables <-> ``state_dict``).
+It imports torch and numpy, and nothing of ``mv3d_tpu``, jax or flax.
 """
 
-from mv3d_tpu.config import Config, kitti_config  # noqa: F401
+from .config import Config, kitti_config  # noqa: F401

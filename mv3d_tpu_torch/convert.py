@@ -77,7 +77,7 @@ def subnet_variables(state_dict: Mapping[str, torch.Tensor]
         *mod, name = key.split(".")
         if name == "num_batches_tracked":
             continue
-        a = t.detach().to("cpu", torch.float32).numpy()
+        a = t.detach().to("cpu", torch.float32, copy=True).numpy()
         if _is_bn(mod):
             leaf = _BN_INV[name]
             collection = ("batch_stats" if name.startswith("running_")

@@ -8,12 +8,15 @@ Submodule names are flax's auto-names (``Conv_0``, ``BatchNorm_1``,
 ``Bottleneck_3`` ...), so a flax variable path maps onto a ``state_dict``
 key one to one (:mod:`mv3d_tpu_torch.convert`).
 
-Numerics follow the JAX modules: a conv or dense layer runs in the dtype
-of its weights (the compute dtype, bf16 on the card; see
-``MV3DNet.__init__``), BatchNorm runs in f32, and the ReLU output is cast
-back to the compute dtype. Flax's ``"SAME"`` padding is reproduced
-exactly: convs here are stride 1 with odd kernels or 1x1 (symmetric), and
-the 3x3/2 max-pool pads (lo, hi) = (total//2, total - total//2) with -inf.
+Numerics follow the JAX modules: a conv or dense layer computes in its
+``compute_dtype`` (bf16 on the card; see ``MV3DNet.__init__``) whatever
+the dtype its weights are held in (the compute dtype for inference, f32
+master weights for training: flax's ``dtype`` over f32 params), BatchNorm
+runs in f32, and the ReLU output is cast back to the compute dtype.
+:class:`BatchNorm` has flax's training semantics (see its note). Flax's
+``"SAME"`` padding is reproduced exactly: convs here are stride 1 with
+odd kernels or 1x1 (symmetric), and the 3x3/2 max-pool pads (lo, hi) =
+(total//2, total - total//2) with -inf.
 
 Not ported (``NotImplementedError``): the 7x7/2 stem (``s2d_factor=0``),
 ``backbone_block="basic"``, the bilinear ``Upsample2D`` deconv
@@ -56,16 +59,71 @@ def avg_pool_same(x: torch.Tensor, kernel: int = 2,
     return F.avg_pool2d(x, kernel, stride)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype``: input, weight and
+    bias are cast to it at each call (a no-op for weights already held in
+    it)."""
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` (as
+    :class:`Conv2d`)."""
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over dim 1 of an (N, C, ...) input, with flax's
+    ``nn.BatchNorm(momentum=0.9)`` semantics.
+
+    Eval mode normalizes with the running statistics. Train mode
+    normalizes with the batch mean and the *biased* batch variance and
+    updates ``running <- 0.9 * running + 0.1 * batch``, also with the
+    biased variance. (``nn.BatchNorm2d`` would update ``running_var`` with
+    the unbiased variance, and its ``momentum`` is flax's ``1 - momentum``.)
+    ``num_batches_tracked`` stays 0: flax keeps no such count."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps)
+
+    def _check_input_dim(self, x):
+        if x.dim() < 2:
+            raise ValueError(f"expected (N, C, ...) input, got {x.dim()}-D")
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            self.running_mean.copy_(self.running_mean * 0.9 + mean * 0.1)
+            self.running_var.copy_(self.running_var * 0.9 + var * 0.1)
+        return y
+
+
 def conv(in_c: int, out_c: int, kernel: int = 1, stride: int = 1,
-         bias: bool = False) -> nn.Conv2d:
+         bias: bool = False) -> Conv2d:
     """A conv whose symmetric padding equals flax "SAME" (stride 1 with an
     odd kernel, or any 1x1)."""
     if stride != 1 and kernel != 1:
         raise NotImplementedError(
             f"{kernel}x{kernel}/{stride} conv: only stride-1 or 1x1 convs "
             f"are ported (ROADMAP A3)")
-    return nn.Conv2d(in_c, out_c, kernel, stride, padding=kernel // 2,
-                     bias=bias)
+    return Conv2d(in_c, out_c, kernel, stride, padding=kernel // 2,
+                  bias=bias)
 
 
 def bn_relu(bn: nn.Module, x: torch.Tensor, dtype: torch.dtype):
@@ -78,21 +136,21 @@ class ConvBnRelu(nn.Module):
                  stride: int = 1):
         super().__init__()
         self.Conv_0 = conv(in_c, out_c, kernel, stride)
-        self.BatchNorm_0 = nn.BatchNorm2d(out_c, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(out_c)
 
     def forward(self, x):
-        dtype = self.Conv_0.weight.dtype
+        dtype = self.Conv_0.compute_dtype
         return bn_relu(self.BatchNorm_0, self.Conv_0(x.to(dtype)), dtype)
 
 
 class DenseBnRelu(nn.Module):
     def __init__(self, in_f: int, out_f: int):
         super().__init__()
-        self.Dense_0 = nn.Linear(in_f, out_f, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm1d(out_f, eps=1e-5)
+        self.Dense_0 = Linear(in_f, out_f, bias=False)
+        self.BatchNorm_0 = BatchNorm(out_f)
 
     def forward(self, x):
-        dtype = self.Dense_0.weight.dtype
+        dtype = self.Dense_0.compute_dtype
         return bn_relu(self.BatchNorm_0, self.Dense_0(x.to(dtype)), dtype)
 
 
@@ -107,7 +165,7 @@ class Bottleneck(nn.Module):
         bns = [in_c] if not plain_entry else []
         bns += [filters, filters]
         for i, c in enumerate(bns):
-            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(c, eps=1e-5))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(c))
         self.Conv_0 = conv(in_c, filters, 1, stride)
         self.Conv_1 = conv(filters, filters, 3)
         self.Conv_2 = conv(filters, out_c, 1)
@@ -116,7 +174,7 @@ class Bottleneck(nn.Module):
             self.Conv_3 = conv(in_c, out_c, 1, stride)
 
     def forward(self, x):
-        dtype = self.Conv_0.weight.dtype
+        dtype = self.Conv_0.compute_dtype
         x = x.to(dtype)
         bn = iter([getattr(self, f"BatchNorm_{i}")
                    for i in range(2 if self.plain_entry else 3)])

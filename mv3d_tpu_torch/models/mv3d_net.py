@@ -1,16 +1,19 @@
-"""MV3DNet — the assembled multi-view detector, inference path.
+"""MV3DNet — the assembled multi-view detector: inference and training.
 
 Port of ``mv3d_tpu/models/mv3d_net.py``: ``project_to_rgb_roi``,
 ``project_to_front_roi``, ``MV3DNet.__init__``, ``anchor_mask`` (occupancy
-path), ``extract_features`` (inference), ``pool_rois`` and
-``forward_inference``. Every per-frame stage the JAX package ``vmap``s is
-written batched over the leading dimension.
+path), ``extract_features``, ``pool_rois``, ``forward_inference``,
+``forward_train`` and ``total_loss``. Every per-frame stage the JAX
+package ``vmap``s is written batched over the leading dimension.
 
 The four subnets keep the JAX package's names (``top_view_rpn``,
 ``image_feature``, ``front_feature``, ``fusion``); ``MV3DNet.subnets`` maps
-them to modules for :mod:`mv3d_tpu_torch.convert`. With
-``model.compute_dtype="bfloat16"`` the conv and dense weights are held in
-bf16 and BatchNorm stays f32, as the JAX ``dtype`` arguments say.
+them to modules for :mod:`mv3d_tpu_torch.convert`. Conv and dense layers
+compute in ``model.compute_dtype`` and BatchNorm in f32, as the JAX
+``dtype`` arguments say. For inference the conv and dense weights are held
+in the compute dtype; :meth:`MV3DNet.master_weights_f32` holds them in f32
+for training (flax keeps f32 params and casts at each use), and the Adam
+moments follow the parameters' dtype.
 
 Trunks a configuration does not use are not run: with ``use_front=False``
 (the default) the front view and ``FrontFeatureNet`` are skipped, as XLA
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mv3d_tpu.config import Config, cfg as _default_cfg
+from ..config import Config, cfg as _default_cfg
 
 from ..ops import boxes3d as box3d_ops
 from ..ops.anchors import anchor_setup, non_empty_anchor_mask_structured
@@ -37,8 +40,12 @@ from ..ops.detect import Detections, rcnn_nms
 from ..ops.proposal import Proposals, rpn_proposals
 from ..ops.roi_align import roi_align
 from ..ops.voxelize import check_dataset, check_view_layout, f32c
-from .nets import (FRONT_FEATURE, FUSION, IMAGE_FEATURE, TOP_VIEW_RPN,
-                   FrontFeatureNet, FusionHead, RgbFeatureNet, TopRPN)
+from ..train import losses as loss_lib
+from ..train import targets as target_lib
+from .backbone import Conv2d, Linear
+from .nets import (FRONT_FEATURE, FUSION, IMAGE_FEATURE, SUBNET_NAMES,
+                   TOP_VIEW_RPN, FrontFeatureNet, FusionHead, RgbFeatureNet,
+                   TopRPN)
 
 
 def project_to_rgb_roi(rois3d: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -111,8 +118,17 @@ class MV3DNet(nn.Module):
 
         dtype = getattr(torch, m.compute_dtype)
         for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if isinstance(mod, (Conv2d, Linear)):
+                mod.compute_dtype = dtype
                 mod.to(dtype)
+
+    def master_weights_f32(self) -> "MV3DNet":
+        """Hold the conv and dense weights in f32 (training's master
+        weights); they still compute in the compute dtype."""
+        for mod in self.modules():
+            if isinstance(mod, (Conv2d, Linear)):
+                mod.float()
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -121,7 +137,7 @@ class MV3DNet(nn.Module):
         kernels and zero biases (flax's defaults, untruncated), identity
         BatchNorm."""
         for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if isinstance(mod, (Conv2d, Linear)):
                 w = mod.weight
                 std = w[0].numel() ** -0.5
                 w.copy_(torch.randn(w.shape, generator=generator) * std)
@@ -146,7 +162,8 @@ class MV3DNet(nn.Module):
             self._feat_shape, self.cfg.pipeline.remove_empty_thresh)
 
     def extract_features(self, top, rgb, front) -> Dict[str, torch.Tensor]:
-        """Run the trunks of the configured views (inference)."""
+        """Run the trunks of the configured views (in the modules' mode:
+        train mode uses and updates batch statistics)."""
         out = {"rpn": self.top_rpn(top)}
         if "rgb" in self.views:
             out["rgb_features"] = self.rgb_net(rgb)
@@ -204,3 +221,80 @@ class MV3DNet(nn.Module):
         dets = rcnn_nms(probs, deltas, rois3d, props.mask,
                         score_threshold=score_threshold, cfg=cfg)
         return dets, props
+
+    # -- training ----------------------------------------------------------
+
+    def forward_train(self, batch: Dict[str, torch.Tensor],
+                      noise: Dict[str, torch.Tensor], train: bool = True
+                      ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+        """Batched training forward: views + gt -> (loss dict, aux).
+
+        ``batch``: top (B, H, W, C), rgb, front (with ``use_front``),
+        optional top_occ (B, H, W) from the voxelizer, gt_boxes3d
+        (B, G, 8, 3), gt_labels (B, G), gt_mask (B, G) bool. ``noise``: the
+        step's uniform draws (:func:`mv3d_tpu_torch.train.targets.draw_noise`).
+
+        With ``train`` every subnet runs in train mode: BatchNorm uses the
+        batch statistics and updates its running statistics in place, in
+        every subnet that runs, trained or frozen (the JAX step returns the
+        same updates from its ``aux["updates"]``). Nothing is detached: the
+        fusion losses reach the RPN's deltas through the sampled rois.
+        """
+        cfg = self.cfg
+        self.train(train)
+        top, rgb = batch["top"], batch["rgb"]
+        gt3d, gt_labels = batch["gt_boxes3d"], batch["gt_labels"]
+        gt_mask = batch["gt_mask"]
+
+        outs = self.extract_features(top, rgb, batch.get("front"))
+        rpn = outs["rpn"]
+        gt_top = box3d_ops.box3d_to_top_box(gt3d, cfg)
+        inside = self.anchor_mask(top, batch.get("top_occ"))
+        rpn_tg = target_lib.rpn_target(self.anchors, inside, gt_top,
+                                       gt_labels, gt_mask, noise["rpn_pos"],
+                                       noise["rpn_neg"], cfg)
+        props = rpn_proposals(rpn["scores"], rpn["deltas"], self.anchors,
+                              inside, cfg)
+        fus_tg = target_lib.fusion_target(props.rois, props.mask, gt_top,
+                                          gt3d, gt_labels, gt_mask,
+                                          noise["fus_fg"], noise["fus_fp"],
+                                          cfg)
+
+        feats = {"top": rpn["features"]}
+        if "rgb_features" in outs:
+            feats["rgb"] = outs["rgb_features"]
+        if "front_features" in outs:
+            feats["front"] = outs["front_features"]
+        pooled = self.pool_rois(feats, fus_tg.rois3d, fus_tg.rois[..., 1:5])
+        b, r = fus_tg.rois.shape[:2]
+        fuse = self.fusion({k: v.reshape((b * r,) + v.shape[2:])
+                            for k, v in pooled.items()})
+
+        top_cls, top_reg = loss_lib.rpn_loss(rpn["scores"], rpn["deltas"],
+                                             rpn_tg)
+        flat_tg = target_lib.FusionTargets(
+            *(x.reshape((b * r,) + x.shape[2:]) for x in fus_tg))
+        fuse_cls, fuse_reg = loss_lib.fuse_loss(fuse["scores"],
+                                                fuse["deltas"], flat_tg)
+        loss_dict = {"top_cls_loss": top_cls.mean(),
+                     "top_reg_loss": top_reg.mean(),
+                     "fuse_cls_loss": fuse_cls, "fuse_reg_loss": fuse_reg}
+        aux = {"rpn_targets": rpn_tg, "fusion_targets": fus_tg,
+               "proposals_scores": rpn["scores"]}
+        return loss_dict, aux
+
+
+def total_loss(loss_dict: Dict[str, torch.Tensor], train_targets,
+               cfg: Config) -> torch.Tensor:
+    """Per-stage loss mix: RPN losses for the RPN stage, the weighted sum
+    of all four for the full net, the fusion losses otherwise."""
+    names = set(train_targets)
+    if names == {TOP_VIEW_RPN}:
+        return loss_dict["top_cls_loss"] + loss_dict["top_reg_loss"]
+    if names == set(SUBNET_NAMES):
+        w1, w2, w3, w4, w5 = cfg.train.loss_weights
+        return (w1 * (w2 * loss_dict["top_cls_loss"] +
+                      w3 * loss_dict["top_reg_loss"]) +
+                w4 * loss_dict["fuse_cls_loss"] +
+                w5 * loss_dict["fuse_reg_loss"])
+    return loss_dict["fuse_cls_loss"] + loss_dict["fuse_reg_loss"]

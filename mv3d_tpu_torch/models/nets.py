@@ -20,9 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mv3d_tpu.config import Config
+from ..config import Config
 
-from .backbone import ConvBnRelu, DenseBnRelu, ResnetTiny, avg_pool_same
+from .backbone import (Conv2d, ConvBnRelu, DenseBnRelu, Linear, ResnetTiny,
+                       avg_pool_same)
 
 TOP_VIEW_RPN = "top_view_rpn"
 IMAGE_FEATURE = "image_feature"
@@ -54,15 +55,14 @@ class TopRPN(nn.Module):
         self.trunk = ResnetTiny(in_c, s2d_factor, repetitions, block=block)
         self.reduce = ConvBnRelu(self.trunk.out_channels, 128, 1)
         self.rpn_conv = ConvBnRelu(128, 128, 3)
-        self.rpn_score = nn.Conv2d(128, 2 * num_bases, 1)
-        self.rpn_delta = nn.Conv2d(128, 4 * num_bases, 1)
+        self.rpn_score = Conv2d(128, 2 * num_bases, 1)
+        self.rpn_delta = Conv2d(128, 4 * num_bases, 1)
 
     def forward(self, top_view: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.reduce(self.trunk(top_view))
         up = self.rpn_conv(x)
-        dtype = self.rpn_score.weight.dtype
-        scores = _nhwc(self.rpn_score(up.to(dtype))).to(torch.float32)
-        deltas = _nhwc(self.rpn_delta(up.to(dtype))).to(torch.float32)
+        scores = _nhwc(self.rpn_score(up)).to(torch.float32)
+        deltas = _nhwc(self.rpn_delta(up)).to(torch.float32)
         b = top_view.shape[0]
         return {
             "features": _nhwc(x),                       # (B, H/8, W/8, 128)
@@ -122,16 +122,15 @@ class _PredictHead(nn.Module):
     def __init__(self, num_class: int, in_f: int = 512, out_dim: int = 24):
         super().__init__()
         self.num_class = num_class
-        self.score = nn.Linear(in_f, num_class)
+        self.score = Linear(in_f, num_class)
         self.box_1 = DenseBnRelu(in_f, 256)
         self.box_2 = DenseBnRelu(256, 256)
-        self.box_3 = nn.Linear(256, num_class * out_dim)
+        self.box_3 = Linear(256, num_class * out_dim)
 
     def forward(self, feat: torch.Tensor):
-        dtype = self.score.weight.dtype
-        scores = self.score(feat.to(dtype)).to(torch.float32)
+        scores = self.score(feat).to(torch.float32)
         h = self.box_2(self.box_1(feat))
-        deltas = self.box_3(h.to(dtype)).to(torch.float32)
+        deltas = self.box_3(h).to(torch.float32)
         return scores, deltas.reshape(-1, self.num_class, 8, 3)
 
 
@@ -140,8 +139,10 @@ class FusionHead(nn.Module):
     DenseBnRelu layers and the with-RGB head.
 
     The ``fc_wo_rgb_*`` layers exist so the parameter set matches the JAX
-    module, but the default mode never reads them (XLA drops them as dead
-    code), so the eager forward skips them too."""
+    module. No output of the default mode reads them: in eval mode the
+    forward skips them (XLA drops them as dead code); in train mode it runs
+    them without gradient, as the JAX module does, for their BatchNorm
+    statistics."""
 
     def __init__(self, cfg: Config, views: Sequence[str]):
         super().__init__()
@@ -166,6 +167,11 @@ class FusionHead(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         feats = [getattr(self, f"{v}_tower")(roi_feats[v])
                  for v in self.views]
+        if self.training:
+            with torch.no_grad():
+                self.fc_wo_rgb_2(self.fc_wo_rgb_1(torch.cat(
+                    [f for v, f in zip(self.views, feats) if v != "rgb"],
+                    dim=1)))
         w = self.fc_all_2(self.fc_all_1(torch.cat(feats, dim=1)))
         scores, deltas = self.head_with_rgb(w)
         return {"scores": scores, "probs": F.softmax(scores, dim=-1),

@@ -1,2 +1,3 @@
-"""Compute ops of the port: voxelizer + sweep kernel, anchors, boxes, NMS,
-proposals, ROI-align, detection decode."""
+"""Compute ops of the port: voxelizer and its two kernels (fused sweep,
+heights scatter-max), anchors, boxes, NMS, proposals, ROI-align, detection
+decode."""

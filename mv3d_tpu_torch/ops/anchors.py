@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from mv3d_tpu.config import Config, cfg as _default_cfg
+from ..config import Config, cfg as _default_cfg
 
 
 def mv3d_car_bases() -> np.ndarray:

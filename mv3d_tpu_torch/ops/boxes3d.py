@@ -1,6 +1,7 @@
 """3D box geometry and coordinate transforms on tensors.
 
-Port of the inference-path functions of ``mv3d_tpu/ops/boxes3d.py``.
+Port of the inference- and training-path functions of
+``mv3d_tpu/ops/boxes3d.py``.
 Boxes3d are (..., 8, 3) corner arrays in lidar coordinates; corners 0-3 are
 the bottom face, 4-7 the top face.
 """
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from mv3d_tpu.config import Config, cfg as _default_cfg
+from ..config import Config, cfg as _default_cfg
 
 from .voxelize import check_dataset
 
@@ -89,12 +90,23 @@ def box3d_to_rgb_box(boxes3d: torch.Tensor,
     return pix.to(torch.int32)       # truncates toward zero
 
 
+def _rms_scale(boxes3d: torch.Tensor) -> torch.Tensor:
+    """Per-box RMS corner spread: sqrt(sum((corners - center)^2) / 8)."""
+    center = boxes3d.mean(dim=-2, keepdim=True)
+    return torch.sqrt(((boxes3d - center) ** 2).sum(dim=(-1, -2)) / 8.0)
+
+
+def box3d_transform(et_boxes3d: torch.Tensor,
+                    gt_boxes3d: torch.Tensor) -> torch.Tensor:
+    """Corner-delta regression targets, normalized by the RMS corner
+    spread of the estimated boxes."""
+    return (gt_boxes3d - et_boxes3d) / _rms_scale(et_boxes3d)[..., None, None]
+
+
 def box3d_transform_inv(et_boxes3d: torch.Tensor,
                         deltas: torch.Tensor) -> torch.Tensor:
-    """Invert the RMS-normalized corner-delta transform."""
-    center = et_boxes3d.mean(dim=-2, keepdim=True)
-    scale = torch.sqrt(((et_boxes3d - center) ** 2).sum(dim=(-1, -2)) / 8.0)
-    return et_boxes3d + scale[..., None, None] * deltas
+    """Invert :func:`box3d_transform`."""
+    return et_boxes3d + _rms_scale(et_boxes3d)[..., None, None] * deltas
 
 
 def regularise_box3d(boxes3d: torch.Tensor) -> torch.Tensor:

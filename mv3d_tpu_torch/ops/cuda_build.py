@@ -1,0 +1,95 @@
+"""Build the port's CUDA kernels with nvcc at first use and load them.
+
+Each source under ``mv3d_tpu_torch/csrc/`` has a plain C interface and is
+compiled by nvcc into its own shared library in ``mv3d_tpu_torch/_build/``,
+named by the source's stem and the hash of its text and the flags, so an
+edited source rebuilds. The kernels' wrappers load their library with
+ctypes (:func:`load_library`) and set the argument types themselves.
+:func:`build_libraries` starts one nvcc per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import List, Sequence
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels need "
+                           "the CUDA toolkit to build")
+    return path
+
+
+def library_path(source: str) -> str:
+    """Where ``source``'s library lives once built."""
+    with open(source, "rb") as f:
+        src = f.read()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{stem}_{digest[:16]}.so")
+
+
+def build_libraries(sources: Sequence[str]) -> List[str]:
+    """Compile every source whose library is not built yet, one nvcc
+    process each, all started together; returns the libraries' paths.
+    Raises on any nvcc failure."""
+    libs = [library_path(s) for s in sources]
+    todo = [(s, lib) for s, lib in zip(sources, libs)
+            if not os.path.exists(lib)]
+    if not todo:
+        return libs
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    running = []
+    try:
+        for src, lib in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            running.append((src, lib, tmp, proc))
+        errors = []
+        for src, lib, tmp, proc in running:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {src} ({proc.returncode}):"
+                              f"\n{out}")
+            else:
+                os.replace(tmp, lib)     # atomic: concurrent builds agree
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    finally:
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return libs
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(source: str) -> ctypes.CDLL:
+    """Build ``source`` if needed and load its library (once)."""
+    return ctypes.CDLL(build_libraries([source])[0])
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a cudaError."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

@@ -11,7 +11,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mv3d_tpu.config import Config, cfg as _default_cfg
+from ..config import Config, cfg as _default_cfg
 
 from . import boxes3d as box3d_ops
 from .nms import greedy_nms

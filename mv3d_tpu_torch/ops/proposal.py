@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mv3d_tpu.config import Config, cfg as _default_cfg
+from ..config import Config, cfg as _default_cfg
 
 from . import boxes as box_ops
 from .nms import greedy_nms

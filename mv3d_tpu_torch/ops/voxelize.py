@@ -5,16 +5,19 @@ view. Semantics are bit-identical to the JAX package and to its numpy
 oracle ``mv3d_tpu/ops/voxelize_ref.py``: strict crops, the inclusive
 slice-boundary redirect, first-max-point intensity and log-count density.
 
-The top view runs through one kernel, the fused sweep
-(:mod:`mv3d_tpu_torch.ops.voxelize_sweep`). In the JAX package the
+Without a host aux plane the top view runs through one kernel, the fused
+sweep (:mod:`mv3d_tpu_torch.ops.voxelize_sweep`). With one (``aux``, the
+(B, Xn, Yn, 2) intensity/density plane the loader computes on the host
+when ``pipeline.host_aux_channels`` is set) only the height channels are
+computed on the device, by the heights scatter-max kernel
+(:mod:`mv3d_tpu_torch.ops.voxelize_heights`). In the JAX package the
 ``pipeline`` options ``use_pallas_fused``, ``use_pallas_heights``,
 ``voxel_order`` and ``sweep_kernel`` only choose a TPU formulation (XLA
 scatters, a sorted Pallas sweep, its loop body, how points are grouped) of
-this one function, so the port computes that function through its one
-kernel whatever they say. Options that change the result's layout or
-source raise ``NotImplementedError``: the folded ``s2d2``/``s2d2p`` views
-and the host ``aux`` plane (ROADMAP A9 / B2), and non-KITTI datasets
-(ROADMAP A1).
+these functions, so the port computes each through its one kernel
+whatever they say. Options that change the result's layout raise
+``NotImplementedError``: the folded ``s2d2``/``s2d2p`` views (ROADMAP A9 /
+B2), and non-KITTI datasets (ROADMAP A1).
 
 Quantization divides by a 0-dim tensor on the points' device, never by a
 Python float: PyTorch's CUDA division by a CPU scalar multiplies by its
@@ -29,8 +32,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mv3d_tpu.config import Config, cfg as _default_cfg
+from ..config import Config, cfg as _default_cfg
 
+from .voxelize_heights import scatter_max_batched
 from .voxelize_sweep import scatter_top_fused_batched
 
 
@@ -115,6 +119,15 @@ def _occ_from_cells(heights2d, intensity, density, counts, cfg: Config):
     return heights2d.to(torch.float32).sum(-1) + intensity + density
 
 
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, one channel after another: XLA's order on
+    the CPU, and the same on every device (``torch.sum`` vectorizes)."""
+    out = x[..., 0]
+    for c in range(1, x.shape[-1]):
+        out = out + x[..., c]
+    return out
+
+
 def lidar_to_top_batch(points: torch.Tensor, cfg: Config = _default_cfg,
                        num_points: Optional[torch.Tensor] = None,
                        aux: Optional[torch.Tensor] = None,
@@ -125,17 +138,23 @@ def lidar_to_top_batch(points: torch.Tensor, cfg: Config = _default_cfg,
     Channels 0..Zn-1: per-slice max height above the slice floor (z-cell
     units); Zn: reflectance of the highest point; Zn+1:
     ``min(1, log(count+1)/log 32)``. Rows/cols are flipped like the
-    reference (top[Xn-1-qx, Yn-1-qy])."""
-    if aux is not None:
-        raise NotImplementedError(
-            "host aux planes (pipeline.host_aux_channels with a native "
-            "loader) are not ported (ROADMAP A9)")
+    reference (top[Xn-1-qx, Yn-1-qy]).
+
+    With ``aux`` (B, Xn, Yn, 2), the host's [intensity, density] plane,
+    only the heights are computed here; the view is then f32 whatever
+    ``top_view_dtype`` says, and the occupancy is the f32 sum of all its
+    channels, as in the JAX package's aux branch."""
     check_view_layout(cfg)
     t = cfg.top
     xn, yn, zn = t.xn, t.yn, t.zn
     n_cells = xn * yn
     bsz = points.shape[0]
     _, _, flat, val, refl = _top_prep(points, cfg, num_points)
+    if aux is not None:
+        heights = scatter_max_batched(flat, val, n_cells * zn)
+        top = torch.cat([heights.reshape(bsz, xn, yn, zn),
+                         aux.to(heights.device, torch.float32)], dim=-1)
+        return (top, _sum_in_order(top)) if return_occ else top
     heights, counts, intensity = scatter_top_fused_batched(
         flat, val, torch.where(flat < n_cells * zn, refl, 0.0), n_cells, zn)
     density = torch.clamp(torch.log(counts + 1.0) / f32c(math.log(32), counts),

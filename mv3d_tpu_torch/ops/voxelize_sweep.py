@@ -29,68 +29,28 @@ launched. There is no fallback. ``scatter_top_fused_batched.launches``
 counts kernel launches.
 
 The shared library is built by nvcc at first use, from the source in this
-checkout, into ``mv3d_tpu_torch/_build/`` under a name keyed by the hash of
-the source and flags, so an edited source rebuilds.
+checkout, into ``mv3d_tpu_torch/_build/`` (:mod:`.cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "voxelize_sweep.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+from .cuda_build import CSRC, check_launch, load_library
+
+SOURCE = os.path.join(CSRC, "voxelize_sweep.cu")
 
 _KEY_LOW = 0xFFFFFFFF
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the voxelizer sweep kernel "
-                           "needs the CUDA toolkit to build")
-    return path
-
-
-def build_library() -> str:
-    """Compile the kernel if this source/flag combination is not built yet;
-    returns the path of the shared library. Raises on any nvcc failure."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = os.path.join(BUILD_DIR, f"voxelize_sweep_{digest[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)     # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library())
+    lib = load_library(SOURCE)
     fn = lib.mv3d_voxelize_sweep
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     fn.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int32,
@@ -136,8 +96,7 @@ def scatter_top_fused_kernel(flat: torch.Tensor, hval: torch.Tensor,
             flat.data_ptr(), hval.data_ptr(), refl.data_ptr(), bsz, n,
             n_cells, zn, heights.data_ptr(), count.data_ptr(),
             intensity.data_ptr(), cnt.data_ptr(), best.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"voxelize sweep launch failed: cudaError {err}")
+    check_launch(err, "voxelize sweep")
     scatter_top_fused_batched.launches += 1
     return heights, count, intensity
 

@@ -1,1 +1,2 @@
-"""Inference API (MV3D)."""
+"""Training and inference: targets, losses, augmentation, checkpoints, and
+the MV3D / Trainer API."""

@@ -1,47 +1,173 @@
-"""User-facing inference API: ``MV3D``.
+"""User-facing API: ``MV3D`` (inference, weights) and ``Trainer`` (staged
+training).
 
-Port of the inference surface of ``mv3d_tpu/train/trainer.py::MV3D``:
-``predict`` (views in) and ``predict_from_points`` (raw padded lidar
-points in; voxelization and detection on the model's device). Weights come
-from a seeded ``torch.Generator`` init or from a JAX variables tree
-through :mod:`mv3d_tpu_torch.convert`.
+Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D`` and ``Trainer``:
 
-Both methods take one frame or a batch and return the batch's fixed-shape
-:class:`Detections` (boxes3d (B, R, 8, 3), probs (B, R), mask (B, R)) as
-tensors on the model's device, where the JAX methods return frame 0's
-masked numpy arrays: a server answers B requests from one call and reads
-the live slots from ``mask``.
+  * ``MV3D.predict`` (views in) and ``predict_from_points`` (raw padded
+    lidar points in, optionally with the host aux plane; voxelization and
+    detection on the model's device). Both take one frame or a batch and
+    return the batch's fixed-shape :class:`Detections` (boxes3d
+    (B, R, 8, 3), probs (B, R), mask (B, R)) as tensors on the model's
+    device, where the JAX methods return frame 0's masked numpy arrays.
+  * per-subnet npz checkpoints in the JAX package's layout
+    (``save_weights`` / ``load_weights`` / ``clean_weights``).
+  * ``Trainer``: one step = augmentation (off by default) -> voxelization
+    (heights on the card, the loader's host aux plane) -> trunks -> RPN ->
+    targets -> proposals -> fusion -> losses -> Adam on the trained
+    subnets only. Frozen subnets still run in train mode and update their
+    BatchNorm statistics, as in the JAX step; their parameters get no
+    gradient, which equals optax's ``set_to_zero``. The learning rate is
+    constant or optax's ``warmup_cosine_decay_schedule``, indexed by the
+    optimizer's own step count as optax does; ``grad_clip_norm`` clips by
+    the global norm of the trained subnets' gradients
+    (``optax.clip_by_global_norm``). Random draws come from a CPU
+    ``torch.Generator`` seeded with ``seed + 1``.
+
+Entry points run on the card unless given ``device="cpu"``; without CUDA
+they raise. Weights come from a seeded ``torch.Generator`` init, from a
+JAX variables tree (:mod:`mv3d_tpu_torch.convert`) or from checkpoints.
+
+Not ported (ROADMAP A6): validation interleave and ``validation_iou``
+(the host polygon IoU), ``MetricsWriter`` and the dashboard, debug image
+dumps, ``remat``, the orbax backend, ``debug_mode``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+import math
+import os
+import sys
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from mv3d_tpu.config import Config, cfg as _default_cfg
-
-from ..convert import load_variables
-from ..models.mv3d_net import MV3DNet
+from ..config import Config, cfg as _default_cfg
+from ..convert import load_variables, subnet_state_dict, subnet_variables
+from ..models.mv3d_net import MV3DNet, total_loss
+from ..models.nets import SUBNET_NAMES
 from ..ops.detect import Detections
 from ..ops.voxelize import lidar_to_front_batch, lidar_to_top_batch
+from .augment import augment_batch
+from .checkpoint import SubnetCheckpointer, load_progress, save_progress
+from .targets import draw_noise
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; the default is the card, and
+    asking for the card without CUDA raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "device='cpu' for the CPU reference")
+    return dev
+
+
+def _prepare_views(batch: Dict[str, torch.Tensor], cfg: Config,
+                   use_front: bool) -> Dict[str, torch.Tensor]:
+    """Voxelize a raw-point batch on its device (heights only when the
+    batch carries the host's ``top_aux``); precomputed views pass."""
+    if "top" in batch:
+        return batch
+    batch = dict(batch)
+    pts, num = batch["points"], batch.get("num_points")
+    batch["top"], batch["top_occ"] = lidar_to_top_batch(
+        pts, cfg, num, aux=batch.pop("top_aux", None), return_occ=True)
+    if use_front:
+        batch["front"] = lidar_to_front_batch(pts, cfg, num)
+    return batch
+
+
+def lr_schedule(cfg: Config, lr: float):
+    """count -> learning rate: constant, or optax's
+    ``warmup_cosine_decay_schedule`` as the JAX Trainer builds it."""
+    tc = cfg.train
+    if tc.lr_schedule == "constant":
+        return lambda count: lr
+    if tc.lr_schedule != "cosine":
+        raise ValueError(f"unknown lr_schedule {tc.lr_schedule!r}")
+    init = 0.0 if tc.warmup_steps else lr
+    warmup = tc.warmup_steps
+    decay = max(tc.decay_steps, tc.warmup_steps + 1) - warmup
+    alpha = tc.lr_end_factor
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return init + (lr - init) * count / warmup
+        t = min(count - warmup, decay) / decay
+        return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t)) + alpha)
+
+    return schedule
 
 
 class MV3D:
-    """Model + weights on one device, with batched inference."""
+    """Model + weights on one device: batched inference and per-subnet
+    checkpoints."""
+
+    _f32_master = False   # Trainer holds f32 master weights
 
     def __init__(self, cfg: Config = _default_cfg, device=None,
                  seed: int = 0,
-                 variables: Optional[Mapping[str, Any]] = None):
+                 variables: Optional[Mapping[str, Any]] = None,
+                 log_tag: str = "default", checkpoint_dir: str = "checkpoint",
+                 log_dir: str = "log"):
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
+        self.tag = log_tag
+        self.log_dir = log_dir
         self.model = MV3DNet(cfg)
+        if self._f32_master:
+            self.model.master_weights_f32()
         if variables is None:
             self.model.init_weights(torch.Generator().manual_seed(seed))
         else:
             load_variables(self.model, variables)
         self.model.to(self.device).eval()
+        ckpt_dir = os.path.join(checkpoint_dir, log_tag)
+        self.checkpointers = {name: SubnetCheckpointer(name, ckpt_dir)
+                              for name in SUBNET_NAMES}
+
+    def log(self, message: str) -> None:
+        """Write to stdout and append to ``<log_dir>/log.txt``."""
+        sys.stdout.write(message)
+        sys.stdout.flush()
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, "log.txt"), "a") as f:
+            f.write(message)
+
+    # -- weights ------------------------------------------------------------
+
+    def get_variables(self) -> Dict[str, Any]:
+        """The weights as the JAX package's ``{subnet: {"params",
+        "batch_stats"}}`` tree of f32 numpy arrays."""
+        return {name: subnet_variables(module.state_dict())
+                for name, module in self.model.subnets.items()}
+
+    def save_weights(self, subnets: Optional[Sequence[str]] = None,
+                     step: int = 0) -> None:
+        for name in (subnets or SUBNET_NAMES):
+            self.checkpointers[name].save(
+                subnet_variables(self.model.subnets[name].state_dict()), step)
+
+    def load_weights(self, subnets: Optional[Sequence[str]] = None,
+                     step: Optional[int] = None) -> None:
+        """Restore the stored subnets; keep the current weights of those
+        without a checkpoint."""
+        for name in (subnets or SUBNET_NAMES):
+            stored = self.checkpointers[name].load(step)
+            if stored is None:
+                self.log(f"Load weights failed for {name}: no checkpoint, "
+                         f"using initialized values\n")
+                continue
+            self.model.subnets[name].load_state_dict(
+                subnet_state_dict(stored))
+            self.log(f"Load weights for {name} success!\n")
+
+    def clean_weights(self, subnets: Optional[Sequence[str]] = None) -> None:
+        for name in (subnets or SUBNET_NAMES):
+            self.checkpointers[name].clean()
+
+    # -- inference ----------------------------------------------------------
 
     def _batch(self, x, ndim: int, dtype=torch.float32) -> torch.Tensor:
         """Array or tensor -> tensor on the model's device, with a batch
@@ -56,6 +182,7 @@ class MV3D:
         """Detection from precomputed NHWC views (single frame or batch)."""
         if score_threshold is None:
             score_threshold = self.cfg.rcnn.score_threshold
+        self.model.eval()
         top = self._batch(top_view, 4)
         rgb = self._batch(rgb_image, 4)
         front = (self._batch(front_view, 4)
@@ -69,19 +196,163 @@ class MV3D:
                             score_threshold: Optional[float] = None,
                             top_aux=None) -> Detections:
         """Detection from raw padded lidar points (N, 4) or (B, N, 4), their
-        valid counts and the rgb image(s): voxelize, then detect."""
-        if top_aux is not None:
-            raise NotImplementedError(
-                "host aux planes are not ported (ROADMAP A9)")
+        valid counts and the rgb image(s): voxelize, then detect. With
+        ``top_aux`` ((Xn, Yn, 2) or (B, Xn, Yn, 2), the host's
+        intensity/density plane) only the heights are computed here."""
         if score_threshold is None:
             score_threshold = self.cfg.rcnn.score_threshold
+        self.model.eval()
         points = self._batch(points, 3)
         rgb = self._batch(rgb, 4)
         num = self._batch(num_points, 1, torch.int32)
-        top, occ = lidar_to_top_batch(points, self.cfg, num,
+        aux = None if top_aux is None else self._batch(top_aux, 4)
+        top, occ = lidar_to_top_batch(points, self.cfg, num, aux=aux,
                                       return_occ=True)
         front = (lidar_to_front_batch(points, self.cfg, num)
                  if "front" in self.model.views else None)
         dets, _ = self.model.forward_inference(
             top, rgb, front, score_threshold=score_threshold, top_occ=occ)
         return dets
+
+
+class Trainer(MV3D):
+    """Staged trainer over any dataset exposing ``load() -> batch dict``
+    (raw ``points`` + ``num_points`` [+ ``top_aux``], or precomputed
+    ``top``/``front`` views; ``rgb``; ``gt_boxes3d`` (B, G, 8, 3),
+    ``gt_labels`` (B, G), ``gt_mask`` (B, G)), e.g. a
+    :class:`mv3d_tpu_torch.data.loader.BatchLoader`."""
+
+    _f32_master = True
+
+    def __init__(self, train_set, validation_set=None,
+                 pre_trained_weights: Sequence[str] = (),
+                 train_targets: Sequence[str] = SUBNET_NAMES,
+                 cfg: Config = _default_cfg, log_tag: str = "default",
+                 continue_train: bool = False, lr: Optional[float] = None,
+                 checkpoint_dir: str = "checkpoint", log_dir: str = "log",
+                 seed: int = 0, device=None,
+                 variables: Optional[Mapping[str, Any]] = None):
+        if validation_set is not None:
+            raise NotImplementedError(
+                "the validation interleave (validation_iou, the host "
+                "polygon IoU) is not ported (ROADMAP A6)")
+        if cfg.train.remat:
+            raise NotImplementedError("train.remat is not ported "
+                                      "(ROADMAP A6)")
+        super().__init__(cfg, device=device, seed=seed, variables=variables,
+                         log_tag=log_tag, checkpoint_dir=checkpoint_dir,
+                         log_dir=log_dir)
+        if not train_targets or not set(train_targets) <= set(SUBNET_NAMES):
+            raise ValueError(f"train_targets {train_targets!r} must be a "
+                             f"non-empty subset of {SUBNET_NAMES}")
+        self.train_set = train_set
+        self.train_targets = tuple(train_targets)
+        self.schedule = lr_schedule(
+            cfg, cfg.train.lr if lr is None else lr)
+
+        self.n_global_step = 0
+        if not continue_train:
+            self.clean_weights(self.train_targets)
+        else:
+            self.n_global_step = load_progress(log_dir, log_tag)
+        if pre_trained_weights:
+            self.load_weights(pre_trained_weights)
+        if continue_train:
+            self.load_weights(self.train_targets)
+
+        for name, module in self.model.subnets.items():
+            module.requires_grad_(name in self.train_targets)
+        self.params = [p for name in self.train_targets
+                       for p in self.model.subnets[name].parameters()]
+        self.optimizer = torch.optim.Adam(self.params, lr=self.schedule(0),
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.opt_steps = 0
+        self.generator = torch.Generator().manual_seed(seed + 1)
+
+    def _to_device(self, v) -> torch.Tensor:
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        return t.to(self.device)
+
+    def _clip_grads(self) -> None:
+        """optax.clip_by_global_norm over the trained subnets' gradients."""
+        max_norm = self.cfg.train.grad_clip_norm
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if max_norm <= 0 or not grads:
+            return
+        norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum()
+                              for g in grads))
+        scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+        for g in grads:
+            g.mul_(scale)
+
+    def fit_iteration(self, batch: Dict[str, np.ndarray],
+                      is_validation: bool = False) -> Dict[str, float]:
+        """One optimization (or, with ``is_validation``, evaluation) step
+        on a host batch dict; returns the four losses and keeps the step's
+        (RpnTargets, FusionTargets) in ``last_targets``."""
+        cfg = self.cfg
+        batch = {k: self._to_device(v) for k, v in batch.items()
+                 if k != "tags"}
+        if not is_validation:
+            batch = augment_batch(batch, cfg, self.generator)
+        batch = _prepare_views(batch, cfg, "front" in self.model.views)
+        noise = draw_noise(cfg, batch["gt_mask"].shape[0], self.generator,
+                           self.device)
+        if is_validation:
+            with torch.no_grad():
+                loss_dict, aux = self.model.forward_train(batch, noise,
+                                                          train=False)
+        else:
+            loss_dict, aux = self.model.forward_train(batch, noise)
+            loss = total_loss(loss_dict, self.train_targets, cfg)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self._clip_grads()
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.opt_steps)
+            self.optimizer.step()
+            self.opt_steps += 1
+        self.model.eval()
+        self.last_targets = (aux["rpn_targets"], aux["fusion_targets"])
+        return {k: float(v.detach()) for k, v in loss_dict.items()}
+
+    def __call__(self, max_iter: int = 1000) -> Dict[str, float]:
+        """The training loop: skip batches without positive gt, log each
+        step to ``<log_dir>/log.txt``, save the trained subnets every
+        ``train.ckpt_every`` steps and at the end, and on a NaN loss save
+        ``<subnet>-crash.npz`` and raise ``FloatingPointError``."""
+        ckpt_every = self.cfg.train.ckpt_every
+        self.log("iter |  top_cls_loss   reg_loss   |  fuse_cls_loss  "
+                 "reg_loss  |\n")
+        last: Dict[str, float] = {}
+        init_step = self.n_global_step
+        for it in range(init_step, init_step + max_iter):
+            batch = self.train_set.load()
+            if batch is None:
+                continue
+            if not np.any(np.asarray(batch["gt_labels"]) *
+                          np.asarray(batch["gt_mask"])):
+                continue
+            last = self.fit_iteration(batch)
+            self.log("%10s: %5d  %0.5f  %0.5f  |  %0.5f  %0.5f\n" % (
+                "training", it, last["top_cls_loss"], last["top_reg_loss"],
+                last["fuse_cls_loss"], last["fuse_reg_loss"]))
+            if np.any(np.isnan(list(last.values()))):
+                # the post-update weights are likely poisoned: save them
+                # where latest_step() never looks, keep progress as is
+                paths = [self.checkpointers[n].save_crash(
+                    subnet_variables(self.model.subnets[n].state_dict()))
+                    for n in self.train_targets]
+                self.log(f"NaN crash-save at iter {it}: forensic weights "
+                         f"at {paths}\n")
+                raise FloatingPointError(
+                    f"NaN loss at iter {it}: {last} (forensic crash "
+                    f"checkpoint saved; resume uses the last good cadence "
+                    f"checkpoint)")
+            self.n_global_step = it + 1
+            if it > 0 and it % ckpt_every == 0:
+                self.save_weights(self.train_targets, it)
+                save_progress(self.log_dir, self.tag, self.n_global_step)
+        self.save_weights(self.train_targets, self.n_global_step)
+        save_progress(self.log_dir, self.tag, self.n_global_step)
+        return last

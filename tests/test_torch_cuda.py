@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_cloud, small_reference
+from chip_smoke import make_cloud, small_reference, small_train_reference
 from mv3d_tpu_torch import kitti_config
 from mv3d_tpu_torch.ops import voxelize as tvox
-from mv3d_tpu_torch.ops import voxelize_sweep
+from mv3d_tpu_torch.ops import voxelize_heights, voxelize_sweep
 
 torch.set_num_threads(2)
 
@@ -61,3 +61,32 @@ def test_predict_from_points_card_matches_cpu():
     detections, RPN outputs, probs and boxes3d
     within the tolerances ``chip_smoke.small_reference`` states."""
     small_reference(np.random.RandomState(1), _cuda())
+
+
+@pytest.mark.cuda
+def test_heights_kernel_bit_equals_plain_on_card():
+    """The heights scatter-max kernel against its plain version at the
+    training path's shapes (B=2, 65,536 points per frame, n_flat =
+    12,000,000): bit-equal on the card and to the CPU."""
+    dev = _cuda()
+    pts = torch.from_numpy(make_cloud(np.random.RandomState(0), 2, 65536,
+                                     CFG, tricky=True))
+    _, _, flat, val, _ = tvox._top_prep(pts, CFG, None)
+    t = CFG.top
+    n_flat = t.xn * t.yn * t.zn
+    want = voxelize_heights.scatter_max_plain(flat, val, n_flat)
+    before = voxelize_heights.scatter_max_batched.launches
+    got = voxelize_heights.scatter_max_batched(flat.to(dev), val.to(dev),
+                                               n_flat)
+    plain = voxelize_heights.scatter_max_plain(flat.to(dev), val.to(dev),
+                                               n_flat)
+    torch.cuda.synchronize()
+    assert voxelize_heights.scatter_max_batched.launches == before + 1
+    assert torch.equal(got, plain) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_training_step_card_matches_cpu(tmp_path):
+    """One small f32 RPN-stage training step on the card and on the CPU,
+    within the tolerances ``chip_smoke.small_train_reference`` states."""
+    small_train_reference(np.random.RandomState(2), _cuda(), str(tmp_path))

@@ -16,17 +16,20 @@ import pytest
 import torch
 
 from __graft_entry__ import _tiny_config
-from mv3d_tpu.config import make_config
 from mv3d_tpu.models.mv3d_net import MV3DNet as JaxMV3DNet
 from mv3d_tpu.models.nets import FusionHead as JaxFusionHead
 from mv3d_tpu_torch import convert
+from mv3d_tpu_torch.config import make_config
 from mv3d_tpu_torch.models.mv3d_net import MV3DNet
 from mv3d_tpu_torch.models.nets import SUBNET_NAMES, FusionHead
+
+from test_torch_config import to_port_config
 
 torch.set_num_threads(2)
 
 CFG = dataclasses.replace(_tiny_config(), model=dataclasses.replace(
     _tiny_config().model, compute_dtype="float32"))
+PCFG = to_port_config(CFG)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -64,7 +67,7 @@ def jax_model():
 @pytest.fixture(scope="module")
 def torch_model(jax_model):
     _, variables = jax_model
-    model = MV3DNet(CFG)
+    model = MV3DNet(PCFG)
     convert.load_variables(model, variables)
     return model.eval()
 
@@ -109,7 +112,7 @@ def test_fusion_head_matches_flax(use_front):
     jhead = JaxFusionHead(cfg=cfg, dtype=np.float32)
     variables = randomize_bn(jhead.init(jax.random.PRNGKey(3), feats), 4)
     want = jax.jit(lambda v, f: jhead.apply(v, f, False))(variables, feats)
-    head = FusionHead(cfg, views)
+    head = FusionHead(to_port_config(cfg), views)
     head.load_state_dict(convert.subnet_state_dict(variables))
     with torch.no_grad():
         got = head.eval()({v: torch.from_numpy(a) for v, a in feats.items()})
@@ -135,7 +138,7 @@ def test_convert_round_trips_every_parameter(jax_model, torch_model):
 
 
 def test_seeded_init_is_deterministic():
-    a, b = MV3DNet(CFG), MV3DNet(CFG)
+    a, b = MV3DNet(PCFG), MV3DNet(PCFG)
     a.init_weights(torch.Generator().manual_seed(11))
     b.init_weights(torch.Generator().manual_seed(11))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
@@ -144,8 +147,8 @@ def test_seeded_init_is_deterministic():
 
 
 def test_bf16_compute_keeps_batchnorm_f32():
-    cfg = dataclasses.replace(CFG, model=dataclasses.replace(
-        CFG.model, compute_dtype="bfloat16"))
+    cfg = dataclasses.replace(PCFG, model=dataclasses.replace(
+        PCFG.model, compute_dtype="bfloat16"))
     model = MV3DNet(cfg)
     assert model.top_rpn.trunk.ConvBnRelu_0.Conv_0.weight.dtype \
         == torch.bfloat16
@@ -163,8 +166,8 @@ def test_bf16_compute_keeps_batchnorm_f32():
     ("use_handcraft_fusion", True), ("use_learnable_fusion", True),
     ("quant", "int8")])
 def test_unported_model_options_raise(field, value):
-    cfg = dataclasses.replace(CFG, model=dataclasses.replace(
-        CFG.model, **{field: value}))
+    cfg = dataclasses.replace(PCFG, model=dataclasses.replace(
+        PCFG.model, **{field: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MV3DNet(cfg)
 

@@ -1,8 +1,11 @@
 """Port parity of the post-trunk ops: the empty-anchor filter, greedy NMS,
 RPN proposals, ROI-align, rcnn_nms and the box geometry they use.
 
-Inputs are made with numpy from a seed and go through both packages.
+Inputs are made with numpy from a seed and go through both packages; the
+training targets get the JAX function's own uniform draws.
 Tolerances: anchor masks and NMS/proposal indices and masks are exact;
+target masks and labels are exact and their regression targets within
+atol 1e-5; box encodings and IoUs within atol 1e-6;
 boxes within atol 1e-4 (exp/log differ in the last ulp between XLA and
 torch); ROI-align within atol 1e-5; image-pixel projections are int32
 truncations, compared exactly with the count of moved pixels stated.
@@ -18,22 +21,29 @@ from __graft_entry__ import _tiny_config
 from mv3d_tpu.config import kitti_config
 from mv3d_tpu.models import mv3d_net as jnet
 from mv3d_tpu.ops import anchors as janchors
+from mv3d_tpu.ops import boxes as jboxes
 from mv3d_tpu.ops import boxes3d as jbox3d
 from mv3d_tpu.ops import detect as jdetect
 from mv3d_tpu.ops import nms as jnms
 from mv3d_tpu.ops import proposal as jproposal
 from mv3d_tpu.ops import roi_align as jroi
+from mv3d_tpu.train import targets as jtargets
 from mv3d_tpu_torch.models import mv3d_net as tnet
 from mv3d_tpu_torch.ops import anchors as tanchors
+from mv3d_tpu_torch.ops import boxes as tboxes
 from mv3d_tpu_torch.ops import boxes3d as tbox3d
 from mv3d_tpu_torch.ops import detect as tdetect
 from mv3d_tpu_torch.ops import nms as tnms
 from mv3d_tpu_torch.ops import proposal as tproposal
 from mv3d_tpu_torch.ops import roi_align as troi
+from mv3d_tpu_torch.train import targets as ttargets
+
+from test_torch_config import to_port_config
 
 torch.set_num_threads(2)
 
 CFG = _tiny_config()
+PCFG = to_port_config(CFG)
 
 
 def _t(a):
@@ -42,10 +52,11 @@ def _t(a):
 
 def test_anchor_setup_matches_jax():
     a_j, in_j = janchors.anchor_setup(CFG)
-    a_t, in_t = tanchors.anchor_setup(CFG)
+    a_t, in_t = tanchors.anchor_setup(PCFG)
     np.testing.assert_array_equal(a_t, a_j)
     np.testing.assert_array_equal(in_t, in_j)
-    assert tanchors.anchor_setup(kitti_config())[0].shape == (30000, 4)
+    kitti = to_port_config(kitti_config())
+    assert tanchors.anchor_setup(kitti)[0].shape == (30000, 4)
 
 
 @pytest.mark.parametrize("threshold", [0.0, 2.0, 5.0])
@@ -104,7 +115,7 @@ def rpn_inputs():
 def test_rpn_proposals_match_jax(rpn_inputs):
     anchors, scores, deltas, inside = rpn_inputs
     got = tproposal.rpn_proposals(_t(scores), _t(deltas), _t(anchors),
-                                  _t(inside), CFG)
+                                  _t(inside), PCFG)
     for i in range(2):
         want = jproposal.rpn_proposals(scores[i], deltas[i], anchors,
                                        inside[i], CFG)
@@ -138,7 +149,7 @@ def test_rcnn_nms_matches_jax(rng):
     deltas = (rng.randn(b, r, 2, 8, 3) * 0.05).astype(np.float32)
     roi_mask = rng.rand(b, r) < 0.9
     got = tdetect.rcnn_nms(_t(probs), _t(deltas), _t(rois3d), _t(roi_mask),
-                           score_threshold=0.3, cfg=CFG)
+                           score_threshold=0.3, cfg=PCFG)
     for i in range(b):
         want = jdetect.rcnn_nms(probs[i], deltas[i], rois3d[i], roi_mask[i],
                                 score_threshold=0.3, cfg=CFG)
@@ -153,15 +164,15 @@ def test_rcnn_nms_matches_jax(rng):
 
 def test_box_lift_and_projections_match_jax(rng):
     boxes = _random_boxes(rng, 1, 64, span=50.0)[0]
-    b3 = tbox3d.top_box_to_box3d(_t(boxes), CFG)
+    b3 = tbox3d.top_box_to_box3d(_t(boxes), PCFG)
     j3 = np.asarray(jbox3d.top_box_to_box3d(boxes, CFG))
     np.testing.assert_allclose(b3.numpy(), j3, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(
-        tbox3d.box3d_to_top_box(_t(j3), CFG).numpy(),
+        tbox3d.box3d_to_top_box(_t(j3), PCFG).numpy(),
         np.asarray(jbox3d.box3d_to_top_box(j3, CFG)))
     # image projection truncates to int pixels, where a last-bit
     # difference can move a corner by one: none of these 512 moves
-    got = tbox3d.box3d_to_rgb_box(_t(j3), CFG).numpy()
+    got = tbox3d.box3d_to_rgb_box(_t(j3), PCFG).numpy()
     want = np.asarray(jbox3d.box3d_to_rgb_box(j3, CFG))
     assert (got != want).sum() == 0
     np.testing.assert_allclose(
@@ -176,6 +187,95 @@ def test_roi_projections_match_jax(rng):
     boxes = _random_boxes(rng, 1, 48, span=50.0)[0]
     j3 = np.asarray(jbox3d.top_box_to_box3d(boxes, CFG))
     for name in ("project_to_rgb_roi", "project_to_front_roi"):
-        got = getattr(tnet, name)(_t(j3), CFG).numpy()
+        got = getattr(tnet, name)(_t(j3), PCFG).numpy()
         want = np.asarray(getattr(jnet, name)(j3, CFG))
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_box_encodings_and_overlaps_match_jax(rng):
+    et = _random_boxes(rng, 1, 50, span=60.0)[0]
+    gt = _random_boxes(rng, 1, 50, span=60.0)[0]
+    np.testing.assert_allclose(
+        tboxes.box_transform(_t(et), _t(gt)).numpy(),
+        np.asarray(jboxes.box_transform(et, gt)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        tboxes.bbox_overlaps(_t(et), _t(gt[:7])).numpy(),
+        np.asarray(jboxes.bbox_overlaps(et, gt[:7])), rtol=0, atol=1e-6)
+    e3 = np.asarray(jbox3d.top_box_to_box3d(et, CFG))
+    g3 = e3 + rng.normal(0, 0.3, e3.shape).astype(np.float32)
+    np.testing.assert_allclose(
+        tbox3d.box3d_transform(_t(e3), _t(g3)).numpy(),
+        np.asarray(jbox3d.box3d_transform(e3, g3)), rtol=0, atol=1e-6)
+
+
+def _gt_rows(rng, n, g=8, span=70.0):
+    boxes = np.zeros((g, 4), np.float32)
+    boxes[:n] = _random_boxes(rng, 1, n, span)[0] + [0, 0, 10, 6]
+    labels = np.zeros(g, np.int32)
+    labels[:n] = 1
+    labels[n - 1] = 2 if n > 2 else 1     # a non-car gt the RPN ignores
+    return boxes, labels, np.arange(g) < n
+
+
+@pytest.mark.parametrize("n_gt", [1, 4])
+def test_rpn_target_matches_jax(n_gt):
+    rng = np.random.RandomState(n_gt)
+    anchors, _ = janchors.anchor_setup(CFG)
+    a = len(anchors)
+    rows = [_gt_rows(rng, n_gt) for _ in range(2)]
+    inside = rng.rand(2, a) < 0.8
+    keys = jax.random.split(jax.random.PRNGKey(n_gt), 2)
+    draws = [[np.asarray(jax.random.uniform(k, (a,)))
+              for k in jax.random.split(key)] for key in keys]
+    got = ttargets.rpn_target(
+        _t(anchors), _t(inside), *(_t(np.stack(x)) for x in zip(*rows)),
+        *(_t(np.stack(x)) for x in zip(*draws)), PCFG)
+    for i in range(2):
+        want = jtargets.rpn_target(anchors, inside[i], *rows[i], keys[i], CFG)
+        assert np.asarray(want.pos_mask).sum() > 0
+        for k in ("cls_mask", "labels", "pos_mask"):
+            np.testing.assert_array_equal(getattr(got, k)[i].numpy(),
+                                          np.asarray(getattr(want, k)),
+                                          err_msg=k)
+        np.testing.assert_allclose(got.targets[i].numpy(),
+                                   np.asarray(want.targets), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("rcnn_batch", [32, 16])
+def test_fusion_target_matches_jax(rcnn_batch):
+    """32 slots > the 24 candidates (dead padding slots), 16 < 24 (the
+    top-k cut)."""
+    import dataclasses
+    cfg = dataclasses.replace(CFG, rcnn=dataclasses.replace(
+        CFG.rcnn, batch_size=rcnn_batch))
+    rng = np.random.RandomState(rcnn_batch)
+    p = cfg.rpn.nms_post_topn
+    frames, jaxed = [], []
+    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(3), 2)):
+        gt, gl, gm = _gt_rows(rng, 3)
+        gt3d = np.asarray(jbox3d.top_box_to_box3d(gt, cfg)) + rng.normal(
+            0, 0.2, (8, 8, 3)).astype(np.float32)
+        rois = np.zeros((p, 5), np.float32)
+        rois[:, 1:] = _random_boxes(rng, 1, p, span=70.0)[0]
+        rois[:4, 1:] = gt[[0, 0, 1, 2]] + rng.normal(0, 1.0, (4, 4))
+        mask = np.arange(p) < p - 3 * i
+        frames.append((rois, mask, gt, gt3d, gl, gm))
+        jaxed.append(jtargets.fusion_target(rois, mask, gt, gt3d, gl, gm,
+                                            key, cfg))
+    draws = [[np.asarray(jax.random.uniform(k, (p + 8,)))
+              for k in jax.random.split(key)]
+             for key in jax.random.split(jax.random.PRNGKey(3), 2)]
+    got = ttargets.fusion_target(*(_t(np.stack(x)) for x in zip(*frames)),
+                                 *(_t(np.stack(x)) for x in zip(*draws)),
+                                 to_port_config(cfg))
+    for i, want in enumerate(jaxed):
+        assert np.asarray(want.pos_mask).sum() > 0
+        for k in ("mask", "labels", "pos_mask"):
+            np.testing.assert_array_equal(getattr(got, k)[i].numpy(),
+                                          np.asarray(getattr(want, k)),
+                                          err_msg=k)
+        for k in ("rois", "rois3d", "targets"):
+            np.testing.assert_allclose(getattr(got, k)[i].numpy(),
+                                       np.asarray(getattr(want, k)),
+                                       rtol=0, atol=1e-5, err_msg=k)

@@ -9,6 +9,7 @@ garbage on both sides); proposals' mask exact and rois within atol 1e-3.
 """
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -23,6 +24,7 @@ from mv3d_tpu.ops import voxelize as jvox
 from mv3d_tpu_torch.ops import voxelize as tvox
 from mv3d_tpu_torch.train.trainer import MV3D
 
+from test_torch_config import to_port_config
 from test_torch_models import randomize_bn
 
 torch.set_num_threads(2)
@@ -32,7 +34,9 @@ CFG = dataclasses.replace(
     model=dataclasses.replace(_tiny_config().model, compute_dtype="float32"),
     pipeline=dataclasses.replace(_tiny_config().pipeline,
                                  use_pallas_fused=True))
+PCFG = to_port_config(CFG)
 THRESH = 0.05
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _requests(seed, b=2):
@@ -63,7 +67,7 @@ def both():
         return jm.forward_inference(v, top, rgb, front,
                                     score_threshold=THRESH, top_occ=occ)
 
-    return infer, variables, MV3D(CFG, variables=variables)
+    return infer, variables, MV3D(PCFG, device="cpu", variables=variables)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -88,7 +92,7 @@ def test_proposals_match_jax(both):
     pts, num, rgb = _requests(3)
     _, jprops = infer(variables, pts, num, rgb)
     p, n = torch.from_numpy(pts), torch.from_numpy(num)
-    top, occ = tvox.lidar_to_top_batch(p, CFG, n, return_occ=True)
+    top, occ = tvox.lidar_to_top_batch(p, PCFG, n, return_occ=True)
     with torch.no_grad():
         _, props = port.model.forward_inference(
             top, torch.from_numpy(rgb), None, score_threshold=THRESH,
@@ -106,7 +110,7 @@ def test_predict_from_views_matches_points(both):
     _, _, port = both
     pts, num, rgb = _requests(4)
     want = port.predict_from_points(pts, num, rgb, score_threshold=THRESH)
-    top = tvox.lidar_to_top_batch(torch.from_numpy(pts), CFG,
+    top = tvox.lidar_to_top_batch(torch.from_numpy(pts), PCFG,
                                   torch.from_numpy(num))
     got = port.predict(top, None, rgb, score_threshold=THRESH)
     assert want.mask.any()
@@ -114,34 +118,68 @@ def test_predict_from_views_matches_points(both):
     assert torch.equal(got.boxes3d, want.boxes3d)
 
 
+def test_predict_from_points_with_host_aux(both):
+    """``predict_from_points(top_aux=...)``: the loader's host plane joins
+    the device heights (heights kernel's plain version on the CPU), and
+    the detections equal ``predict`` on the same assembled view."""
+    from mv3d_tpu_torch.data.host_aux import lidar_to_top_aux
+    _, _, port = both
+    pts, num, rgb = _requests(5)
+    aux = np.stack([lidar_to_top_aux(p[:n], PCFG) for p, n in zip(pts, num)])
+    got = port.predict_from_points(pts, num, rgb, score_threshold=THRESH,
+                                   top_aux=aux)
+    top = tvox.lidar_to_top_batch(torch.from_numpy(pts), PCFG,
+                                  torch.from_numpy(num),
+                                  aux=torch.from_numpy(aux))
+    want = port.predict(top, None, rgb, score_threshold=THRESH)
+    assert want.mask.any()
+    assert torch.equal(got.mask, want.mask)
+    assert torch.equal(got.boxes3d, want.boxes3d)
+
+
 _NO_JAX = r"""
-import dataclasses, sys
+import dataclasses, sys, tempfile
 import numpy as np
+import chip_smoke
 import mv3d_tpu_torch
-from mv3d_tpu_torch import convert
-from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, detect, nms,
-                                proposal, roi_align, voxelize, voxelize_sweep)
+from mv3d_tpu_torch import config, convert
+from mv3d_tpu_torch.data import host_aux, loader
+from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
+                                nms, proposal, roi_align, voxelize,
+                                voxelize_heights, voxelize_sweep)
 from mv3d_tpu_torch.models import backbone, mv3d_net, nets
-from mv3d_tpu_torch.train.trainer import MV3D
+from mv3d_tpu_torch.train import (augment, checkpoint, losses, targets,
+                                  trainer)
 cfg = mv3d_tpu_torch.kitti_config()
 cfg = dataclasses.replace(
     cfg, top=dataclasses.replace(cfg.top, x_max=16.0, y_min=-6.0, y_max=6.0,
                                  x_div=0.2, y_div=0.2),
+    pipeline=dataclasses.replace(cfg.pipeline, max_points=2048),
     image_width=96, image_height=64)
 rng = np.random.RandomState(0)
 pts = np.stack([rng.uniform(0, 16, 512), rng.uniform(-6, 6, 512),
                 rng.uniform(-4, 0.8, 512), rng.uniform(0, 1, 512)], -1)
-dets = MV3D(cfg, seed=0).predict_from_points(
+dets = trainer.MV3D(cfg, device="cpu", seed=0).predict_from_points(
     pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
 assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+drive = chip_smoke.SynthDrive(rng, cfg, 2, 3000, cars=(2, 2))
+d = tempfile.mkdtemp()
+with loader.BatchLoader(drive, cfg, batch_size=2) as data:
+    tr = trainer.Trainer(data, cfg=cfg, device="cpu",
+                         checkpoint_dir=d + "/ckpt", log_dir=d + "/log")
+    assert np.isfinite(list(tr.fit_iteration(data.load()).values())).all()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "mv3d_tpu"))
 assert not bad, bad
 print("ok")
 """
 
 
 def test_port_never_imports_jax():
+    """Every port module and ``chip_smoke`` import, serve and train on the
+    CPU without loading jax, flax or the JAX package."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX],
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
