@@ -1,30 +1,39 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives ``mv3d_tpu_torch`` — never jax — through its two paths at full
+Drives ``mv3d_tpu_torch`` — never jax — through its three paths at full
 KITTI width (top view 800x600x27, rgb 375x1242, 65,536 points per frame,
 30,000 anchors) with random weights from a seed, and holds each of their
 hand-written kernels against its plain PyTorch version:
 
-  * serving: ``MV3D.predict_from_points`` (lidar -> 3D boxes, 30
-    proposals per frame) through the fused voxelizer sweep kernel
-    (``voxelize_sweep``);
+  * serving, hwc: ``MV3D.predict_from_points`` (lidar -> 3D boxes, 30
+    proposals per frame) in the standard view layout, through the fused
+    voxelizer sweep kernel (``voxelize_sweep``, K1);
+  * serving, s2d2p: the same entry point in the JAX package's own serving
+    configuration (``bench.py``: lane-padded folded view ``s2d2p`` in
+    bf16, split conv stem, matmul ROI-align;
+    ``mv3d_tpu_torch.serving_config``),
+    through the lane-padded sweep kernel (``voxelize_padded``, K2);
   * training: the staged ``Trainer`` (bf16 compute, f32 master weights)
     fed by the port's ``BatchLoader``, whose prefetch thread computes the
     BEV intensity/density plane on the host, so the card voxelizes only
     the heights, through the heights scatter-max kernel
-    (``voxelize_heights``).
+    (``voxelize_heights``, K3).
 
 Phases:
 
   1. require CUDA; print the card's name and power limit;
-  2. build both kernels from this checkout's sources (one nvcc each, in
-     parallel);
+  2. build the three kernels from this checkout's sources (one nvcc each,
+     in parallel);
   3. hold each kernel against its plain version at its path's shapes (B=2,
-     65,536 points per frame): bit-equal on the card and against the CPU;
-  4. serve three requests (B=2, distinct clouds) and check the sweep
-     kernel ran once per request, the outputs' shape and finiteness, the
-     card's top view and occupancy against the CPU's, and a small f32
-     model on the card against the CPU;
+     65,536 points per frame, K2 with f32 and bf16 heights): bit-equal on
+     the card and against the CPU; then, on the card, the s2d2p pair and
+     the s2d2 view equal the folded hwc view bit for bit (K2 against K1)
+     and their unfolded occupancy the hwc occupancy;
+  4. serve three requests (B=2, distinct clouds) in each serving
+     configuration and check that its kernel ran once per request and the
+     other sweep not at all, the outputs' shape and finiteness, the card's
+     top view and occupancy against the CPU's, and a small f32 model on
+     the card against the CPU;
   5. train at B=2 from an in-memory synthetic drive (raw-size clouds with
      3-8 planted gt cars per frame): 5 steps of ``top_view_rpn``, then 5
      of all subnets; check finite losses, one heights-kernel launch per
@@ -34,18 +43,19 @@ Phases:
      then one small f32 training step on the card against the CPU;
   6. time each kernel against its plain version and the one PyTorch call
      that computes the same function, where there is one (CUDA events), at
-     B=1, 2 and 8; the serving path at B=1 and B=8 (closed loop, three
-     windows of SERVE_WINDOW_S seconds after a warm-up window of
+     B=1, 2 and 8; each serving configuration at B=1 and B=8 (closed loop,
+     three windows of SERVE_WINDOW_S seconds after a warm-up window of
      SERVE_WARMUP_S seconds: per window frames/s and the median and p90
      latency, then the median and range over the windows); the training
      step at B=2 (three windows of TRAIN_WINDOW_STEPS steps after
      TRAIN_WARMUP_STEPS: ms/step and frames/s, median and range) with its
      peak allocated memory;
-  7. only with ``--profile DIR``: torch.profiler over a few requests at
-     B=1 and B=8 and a few training steps: the card's busy time per
-     request or step (union of kernel intervals), its idle share against
-     the median wall time, peak allocated memory and the ops with the
-     most device time; the profiler's tables go to DIR.
+  7. only with ``--profile DIR``: torch.profiler over a few requests of
+     each serving configuration at B=1 and B=8 and a few training steps:
+     the card's busy time per request or step (union of kernel
+     intervals), its idle share against the median wall time, peak
+     allocated memory and the ops with the most device time; the
+     profiler's tables go to DIR.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The line before the last is the kernels' JSON record; the last is
@@ -258,9 +268,11 @@ def profile_calls(call, n: int, label: str, median_s: float, out_dir: str,
         + f" [{card}] (table: {path})")
 
 
-def small_reference(rng, dev):
+def small_reference(rng, dev, serving: bool = False):
     """A small f32 model from one seed, run on the card and on the CPU:
-    RPN outputs, proposals and detections must agree.
+    RPN outputs, proposals and detections must agree. With ``serving``
+    the model runs in ``mv3d_tpu_torch.serving_config`` (s2d2p pair in
+    bf16, split stem, matmul ROI-align; compute stays f32).
 
     Tolerances: proposal and detection masks exact; RPN scores/deltas atol
     1e-4 and proposal rois atol 1e-3 (cuDNN and the CPU sum convs in
@@ -272,7 +284,7 @@ def small_reference(rng, dev):
     (measured on an H100 with 2 moved corners: 2.1e-4 and 2.9e-3 m)."""
     import numpy as np
     import torch
-    from mv3d_tpu_torch import kitti_config
+    from mv3d_tpu_torch import kitti_config, serving_config
     from mv3d_tpu_torch.models.mv3d_net import project_to_rgb_roi
     from mv3d_tpu_torch.ops.boxes3d import top_box_to_box3d
     from mv3d_tpu_torch.ops.voxelize import lidar_to_top_batch
@@ -284,6 +296,8 @@ def small_reference(rng, dev):
                                      y_max=6.0, x_div=0.2, y_div=0.2),
         model=dataclasses.replace(cfg.model, compute_dtype="float32"),
         image_width=96, image_height=64)
+    if serving:
+        small = serving_config(small)
     pts = make_cloud(rng, 2, 2048, small, tricky=False)
     rgb = rng.rand(2, *small.rgb_shape).astype(np.float32)
     res = {}
@@ -319,7 +333,9 @@ def small_reference(rng, dev):
               "proposal rois": (err(r0, r1), 1e-3),
               "probs": (err(p0, p1, m0), fused[0]),
               "boxes3d": (err(b0, b1, m0), fused[1])}
-    log("phase reference: small f32 model, card vs CPU: same "
+    log(f"phase reference: small f32 model "
+        f"({small.pipeline.view_layout}, {small.model.roi_align_impl} "
+        f"ROI-align), card vs CPU: same "
         f"{int(pm0.sum())} proposals and {int(m0.sum())} live detections; "
         + ", ".join(f"{k} max|diff| {e:.3g} (tol {t:g})"
                     for k, (e, t) in checks.items())
@@ -535,16 +551,188 @@ def train_phase(cfg, dev, rng, work_dir, card):
     return tr2, loader, launches1 + launches2
 
 
-def kernel_bounds(b, n_points, n_cells, zn):
+def kernel_bounds(b, n_points, n_cells, zn, n_sc):
     """Least card time (ms) of each kernel's work at batch ``b``: its bytes
     (each input read once, each output written once) over the HBM rate;
     the work is a few integer ops per byte, far below the card's peak
-    rate, so bytes bound both."""
+    rate, so bytes bound both. K2 at the serving path's bf16 heights
+    (``voxelize_padded``) and with f32 heights (``voxelize_padded_f32``)."""
     n_flat = n_cells * zn
     sweep_bytes = b * (n_points * 12 + n_flat * 4 + n_cells * 8)
     heights_bytes = b * (n_points * 8 + n_flat * 4)
-    return {"voxelize_sweep": sweep_bytes / HBM_BYTES_PER_S * 1e3,
-            "voxelize_heights": heights_bytes / HBM_BYTES_PER_S * 1e3}
+
+    def padded_bytes(h_bytes):
+        return b * (n_points * 12 + n_sc * 128 * h_bytes + n_sc * 4 * 8)
+
+    return {name: nbytes / HBM_BYTES_PER_S * 1e3 for name, nbytes in (
+        ("voxelize_sweep", sweep_bytes), ("voxelize_heights", heights_bytes),
+        ("voxelize_padded", padded_bytes(2)),
+        ("voxelize_padded_f32", padded_bytes(4)))}
+
+
+def check_padded_kernel(rng, cfg, dev, n_pts):
+    """K2 against its plain version at the s2d2p path's shapes (B=2, tricky
+    clouds), heights in f32 and bf16: bit-equal on the card and to the
+    CPU. Returns the max |kernel - plain| (0)."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize as vox
+    from mv3d_tpu_torch.ops import voxelize_padded as vp
+    t = cfg.top
+    n_sc = (t.xn // 2) * vox.folded_pad_width(t.yn)
+    pts = torch.from_numpy(make_cloud(rng, 2, n_pts, cfg, tricky=True))
+    _, _, flat, val, refl = vox._top_prep(pts, cfg, None, s2d="pad")
+    refl = torch.where(flat < n_sc * 128, refl, 0.0)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        want = vp.scatter_top_padded_plain(flat, val, refl, n_sc, t.zn, dtype)
+        args = (flat.to(dev), val.to(dev), refl.to(dev), n_sc, t.zn, dtype)
+        got = vp.scatter_top_padded_kernel(*args)
+        plain = vp.scatter_top_padded_plain(*args)
+        torch.cuda.synchronize()
+        for name, g, p, w in zip(("heights", "count", "intensity"), got,
+                                 plain, want):
+            if not (torch.equal(g, p) and torch.equal(g.cpu(), w)):
+                raise AssertionError(f"lane-padded kernel {name} ({dtype}) "
+                                     f"differs from its plain version")
+            err = max(err, (g.float() - p.float()).abs().max().item())
+        log(f"phase kernel-vs-plain: voxelize_padded B=2 N={n_pts} "
+            f"n_sc={n_sc} heights {str(dtype)[6:]}: heights/count/intensity "
+            f"bit-equal to the plain version on the card and on the CPU "
+            f"(occupied cells {int((want[1] > 0).sum())}, nonzero height "
+            f"slots {int((want[0] > 0).sum())})")
+    return err
+
+
+def check_folded_views(rng, cfg, dev, n_pts):
+    """On the card, for one batch: the s2d2p pair (K2) and the s2d2 view
+    (K1, folded numbering) equal the fold of the hwc view (K1) bit for
+    bit, and their unfolded occupancy the hwc occupancy."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize as vox
+    t = cfg.top
+    pts = torch.from_numpy(make_cloud(rng, 2, n_pts, cfg, tricky=True)
+                           ).to(dev)
+
+    def with_layout(layout):
+        return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+            cfg.pipeline, view_layout=layout))
+
+    top, occ = vox.lidar_to_top_batch(pts, with_layout("hwc"),
+                                      return_occ=True)
+    for layout, fold in (("s2d2p", vox.fold_view_s2d2p),
+                         ("s2d2", vox.fold_view_s2d2)):
+        ftop, focc = vox.lidar_to_top_batch(pts, with_layout(layout),
+                                            return_occ=True)
+        want = fold(top)
+        same = (all(torch.equal(a, b) for a, b in zip(ftop, want))
+                if layout == "s2d2p" else torch.equal(ftop, want))
+        if not same:
+            raise AssertionError(f"{layout} view differs from the folded "
+                                 f"hwc view on the card")
+        if not torch.equal(vox.unfold_occ4(focc, t.xn, t.yn), occ):
+            raise AssertionError(f"{layout} occupancy differs from the hwc "
+                                 f"occupancy on the card")
+    torch.cuda.synchronize()
+    log(f"phase folded-vs-standard: on the card, B=2 N={n_pts} "
+        f"({cfg.pipeline.top_view_dtype} view): the s2d2p pair (K2) equals "
+        f"fold_view_s2d2p of the hwc view (K1) and the s2d2 view (K1, "
+        f"folded numbering) fold_view_s2d2 of it, bit for bit; unfolded "
+        f"occupancies equal the hwc occupancy ({int((occ > 0).sum())} "
+        f"occupied cells)")
+
+
+def serve_requests(model, requests, counters, want):
+    """Serve ``requests`` through ``model.predict_from_points`` with the
+    kernels' counts set to 0 just before; check each detection batch and
+    that each counter reads ``want[name]`` just after. Returns the
+    counts."""
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    outs = [model.predict_from_points(p, n, r, THRESH)
+            for p, n, r in requests]
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want} for "
+                             f"{len(requests)} requests")
+    cfg = model.cfg
+    for dets in outs:
+        if tuple(dets.boxes3d.shape) != (2, cfg.rpn.nms_post_topn, 8, 3):
+            raise AssertionError(f"boxes3d shape {tuple(dets.boxes3d.shape)}")
+        if not (torch.isfinite(dets.boxes3d).all()
+                and torch.isfinite(dets.probs).all()):
+            raise AssertionError("non-finite detections")
+    log(f"phase serve: {cfg.pipeline.view_layout} "
+        f"({cfg.pipeline.top_view_dtype} view, {cfg.model.roi_align_impl} "
+        f"ROI-align): {len(requests)} requests of B=2 at full KITTI width, "
+        f"kernel launches {counts}, live detections "
+        f"{[int(d.mask.sum()) for d in outs]}")
+    return counts
+
+
+def check_top_view_card_vs_cpu(cfg, points, dev):
+    """One frame's top view and occupancy on the card against the CPU's:
+    bit-equal but density (1 f32 ulp of log; in a bf16 view 1 bf16 ulp)."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize as vox
+    pts = torch.from_numpy(points[:1])
+    top_c, occ_c = vox.lidar_to_top_batch(pts, cfg, return_occ=True)
+    top_g, occ_g = vox.lidar_to_top_batch(pts.to(dev), cfg, return_occ=True)
+    layout = cfg.pipeline.view_layout
+    if layout == "s2d2p":
+        exact = [(top_g[0], top_c[0]), (top_g[1][..., :4], top_c[1][..., :4])]
+        dens = (top_g[1][..., 4:], top_c[1][..., 4:])
+    else:
+        zn = cfg.top.zn
+        exact = [(top_g[..., :zn + 1], top_c[..., :zn + 1])]
+        dens = (top_g[..., zn + 1], top_c[..., zn + 1])
+    exact.append((occ_g, occ_c))
+    if not all(torch.equal(g.cpu(), c) for g, c in exact):
+        raise AssertionError(f"{layout} top view/occupancy on the card "
+                             f"differ from the CPU plain path")
+    g, c = dens[0].cpu().float(), dens[1].float()
+    dens_err = (g - c).abs().max().item()
+    ulp = 2.0 ** -8 if cfg.pipeline.top_view_dtype == "bfloat16" else 1e-6
+    if dens_err > ulp:
+        raise AssertionError(f"{layout} density differs by {dens_err}")
+    log(f"phase top-view: {layout} card == CPU for one frame (heights, "
+        f"intensity, occupancy bit-equal; density max |diff| "
+        f"{dens_err:.3g}, tol {ulp:g})")
+
+
+def serve_timing(model, label, rng, cfg, dev, n_pts, profile_dir, card):
+    """Closed-loop serving windows of ``model`` at B=1 and B=8, then, with
+    ``profile_dir``, a torch.profiler pass of 5 requests each."""
+    import numpy as np
+    import torch
+    for b in (1, 8):
+        batches = [(torch.from_numpy(make_cloud(rng, b, n_pts, cfg, False)
+                                     ).to(dev),
+                    torch.full((b,), n_pts, dtype=torch.int32, device=dev),
+                    torch.rand(b, *cfg.rgb_shape, device=dev))
+                   for _ in range(4)]
+        serve_window(model, batches, SERVE_WARMUP_S)
+        fps, medians = [], []
+        for w in range(3):
+            lat = np.array(serve_window(model, batches, SERVE_WINDOW_S))
+            fps.append(b * len(lat) / lat.sum())
+            log(f"phase timing: serving {label} B={b} window {w + 1}/3: "
+                f"{len(lat)} requests in {lat.sum():.2f} s, "
+                f"{fps[-1]:.2f} frames/s, latency median "
+                f"{np.median(lat) * 1e3:.2f} ms, p90 "
+                f"{np.percentile(lat, 90) * 1e3:.2f} ms [{card}]")
+            medians.append(np.median(lat))
+        log(f"phase timing: serving {label} B={b}: {np.median(fps):.2f} "
+            f"frames/s, median of 3 windows (range {min(fps):.2f}-"
+            f"{max(fps):.2f}) [{card}]")
+        if profile_dir:
+            profile_calls(
+                lambda i: model.predict_from_points(
+                    *batches[i % len(batches)], THRESH),
+                5, f"serving {label} B={b}", float(np.median(medians)),
+                profile_dir, card)
+        del batches
 
 
 def main(argv=None) -> int:
@@ -557,14 +745,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this test runs only on the card")
         return 1
+    t_start = time.time()
     card = card_line()
     log(card)
 
     import numpy as np
-    from mv3d_tpu_torch import kitti_config
+    from mv3d_tpu_torch import kitti_config, serving_config
     from mv3d_tpu_torch.ops import cuda_build
     from mv3d_tpu_torch.ops import voxelize as vox
     from mv3d_tpu_torch.ops import voxelize_heights as vh
+    from mv3d_tpu_torch.ops import voxelize_padded as vp
     from mv3d_tpu_torch.ops import voxelize_sweep as sweep
     from mv3d_tpu_torch.train.trainer import MV3D
 
@@ -574,6 +764,7 @@ def main(argv=None) -> int:
     cfg = kitti_config()
     serve_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
         cfg.pipeline, use_pallas_fused=True))
+    pad_cfg = serving_config(cfg)
     # the JAX package's training configuration: host aux plane, heights
     # through the Pallas kernel on the accelerator
     train_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
@@ -581,25 +772,33 @@ def main(argv=None) -> int:
     t = cfg.top
     n_cells, zn, n_pts = t.xn * t.yn, t.zn, cfg.pipeline.max_points
     n_flat = n_cells * zn
+    n_sc = (t.xn // 2) * vox.folded_pad_width(t.yn)
     rng = np.random.RandomState(0)
     work_dirs = [os.path.join(ROOT, d, "chip_smoke")
                  for d in ("checkpoint", "log")]
     for d in work_dirs:
         shutil.rmtree(d, ignore_errors=True)
+    counters = {"voxelize_sweep": sweep.scatter_top_fused_batched,
+                "voxelize_padded": vp.scatter_top_padded_batched,
+                "voxelize_heights": vh.scatter_max_batched}
 
-    # -- 2. build both kernels, one nvcc each, in parallel ---------------
+    # -- 2. build the three kernels, one nvcc each, in parallel -----------
     t0 = time.time()
-    cuda_build.build_libraries([sweep.SOURCE, vh.SOURCE])
-    sweep._library()
-    vh._library()
-    log(f"phase build: voxelize_sweep and voxelize_heights built in "
-        f"{time.time() - t0:.2f} s")
+    cuda_build.build_libraries(cuda_build.SOURCES)
+    for mod in (sweep, vp, vh):
+        mod._library()
+    log(f"phase build: voxelize_sweep, voxelize_padded and voxelize_heights "
+        f"built in {time.time() - t0:.2f} s")
 
     # -- 3. each kernel against its plain version -------------------------
-    def prep(b, device):
+    def prep(b, device, s2d=False):
+        """Quantized tricky clouds: K1/K3's row-major ids, or with
+        ``s2d="pad"`` K2's lane-padded ids."""
         pts = torch.from_numpy(make_cloud(rng, b, n_pts, cfg, tricky=True))
-        _, _, flat, val, refl = vox._top_prep(pts.to(device), cfg, None)
-        return flat, val, torch.where(flat < n_flat, refl, 0.0)
+        _, _, flat, val, refl = vox._top_prep(pts.to(device), cfg, None,
+                                              s2d=s2d)
+        dump = n_sc * 128 if s2d else n_flat
+        return flat, val, torch.where(flat < dump, refl, 0.0)
 
     flat, val, refl = prep(2, torch.device("cpu"))
     want = sweep.scatter_top_fused_plain(flat, val, refl, n_cells, zn)
@@ -617,6 +816,7 @@ def main(argv=None) -> int:
     log(f"phase kernel-vs-plain: voxelize_sweep B=2 N={n_pts} "
         f"heights/count/intensity bit-equal to the plain version on the "
         f"card and on the CPU (occupied cells {int((want[1] > 0).sum())})")
+    padded_err = check_padded_kernel(rng, cfg, dev, n_pts)
     want_h = vh.scatter_max_plain(flat, val, n_flat)
     hargs = (flat.to(dev), val.to(dev), n_flat)
     got_h = vh.scatter_max_kernel(*hargs)
@@ -641,55 +841,48 @@ def main(argv=None) -> int:
         f"n_flat={n_flat} bit-equal to the plain version on the card and "
         f"on the CPU, and to one scatter_reduce_ call (nonzero "
         f"{int((want_h > 0).sum())})")
+    pflat, pval, prefl = prep(2, dev, s2d="pad")
+    bf16 = torch.bfloat16
     timed = {"voxelize_sweep": (
                  cuda_ms(lambda: sweep.scatter_top_fused_kernel(*args)),
                  cuda_ms(lambda: sweep.scatter_top_fused_plain(*args)),
+                 None),
+             "voxelize_padded": (
+                 cuda_ms(lambda: vp.scatter_top_padded_kernel(
+                     pflat, pval, prefl, n_sc, zn, bf16)),
+                 cuda_ms(lambda: vp.scatter_top_padded_plain(
+                     pflat, pval, prefl, n_sc, zn, bf16)),
                  None),
              "voxelize_heights": (
                  cuda_ms(lambda: vh.scatter_max_kernel(*hargs)),
                  cuda_ms(lambda: vh.scatter_max_plain(*hargs)),
                  cuda_ms(heights_library))}
-    del got, plain, got_h, plain_h, lib_h, lib_idx
+    padded_f32 = (cuda_ms(lambda: vp.scatter_top_padded_kernel(
+                      pflat, pval, prefl, n_sc, zn)),
+                  cuda_ms(lambda: vp.scatter_top_padded_plain(
+                      pflat, pval, prefl, n_sc, zn)))
+    del got, plain, got_h, plain_h, lib_h, lib_idx, pflat, pval, prefl
+    check_folded_views(rng, pad_cfg, dev, n_pts)
 
-    # -- 4. serve three requests through the serving path ----------------
-    model = MV3D(serve_cfg, device=dev, seed=0)
+    # -- 4. serve three requests through each serving path ----------------
     requests = [(make_cloud(rng, 2, n_pts, cfg, tricky=False),
                  np.full(2, n_pts, np.int32),
                  rng.rand(2, *cfg.rgb_shape).astype(np.float32))
                 for _ in range(3)]
-    sweep.scatter_top_fused_batched.launches = 0
-    outs = [model.predict_from_points(p, n, r, THRESH)
-            for p, n, r in requests]
-    torch.cuda.synchronize()
-    serve_launches = sweep.scatter_top_fused_batched.launches
-    if serve_launches != len(requests):
-        raise AssertionError(f"sweep kernel launched {serve_launches} "
-                             f"times for {len(requests)} requests")
-    for dets in outs:
-        if tuple(dets.boxes3d.shape) != (2, cfg.rpn.nms_post_topn, 8, 3):
-            raise AssertionError(f"boxes3d shape {tuple(dets.boxes3d.shape)}")
-        if not (torch.isfinite(dets.boxes3d).all()
-                and torch.isfinite(dets.probs).all()):
-            raise AssertionError("non-finite detections")
-    log(f"phase serve: 3 requests of B=2 at full KITTI width, sweep kernel "
-        f"launches {serve_launches}, live detections "
-        f"{[int(d.mask.sum()) for d in outs]}")
-
-    pts0 = torch.from_numpy(requests[0][0][:1])
-    top_c, occ_c = vox.lidar_to_top_batch(pts0, serve_cfg, return_occ=True)
-    top_g, occ_g = vox.lidar_to_top_batch(pts0.to(dev), serve_cfg,
-                                          return_occ=True)
-    if not (torch.equal(top_g[..., :zn + 1].cpu(), top_c[..., :zn + 1])
-            and torch.equal(occ_g.cpu(), occ_c)):
-        raise AssertionError("top view/occupancy on the card differ from "
-                             "the CPU plain path")
-    dens_err = (top_g[..., zn + 1].cpu() - top_c[..., zn + 1]).abs().max()
-    if dens_err > 1e-6:
-        raise AssertionError(f"density differs by {dens_err.item()}")
-    log(f"phase top-view: card == CPU for one frame (heights, intensity, "
-        f"occupancy bit-equal; density max |diff| {dens_err.item():.3g})")
-
+    model = MV3D(serve_cfg, device=dev, seed=0)
+    serve_launches = serve_requests(
+        model, requests, counters,
+        {"voxelize_sweep": 3, "voxelize_padded": 0,
+         "voxelize_heights": 0})["voxelize_sweep"]
+    check_top_view_card_vs_cpu(serve_cfg, requests[0][0], dev)
     small_reference(rng, dev)
+    pad_model = MV3D(pad_cfg, device=dev, seed=0)
+    padded_launches = serve_requests(
+        pad_model, requests, counters,
+        {"voxelize_sweep": 0, "voxelize_padded": 3,
+         "voxelize_heights": 0})["voxelize_padded"]
+    check_top_view_card_vs_cpu(pad_cfg, requests[0][0], dev)
+    small_reference(rng, dev, serving=True)
 
     # -- 5. train at full width, then a small step against the CPU -------
     trainer, loader, train_launches = train_phase(
@@ -697,12 +890,18 @@ def main(argv=None) -> int:
     small_train_reference(rng, dev, os.path.join(work_dirs[0], "small"))
 
     # -- 6. timings --------------------------------------------------------
-    bounds = {b: kernel_bounds(b, n_pts, n_cells, zn) for b in (1, 2, 8)}
+    bounds = {b: kernel_bounds(b, n_pts, n_cells, zn, n_sc)
+              for b in (1, 2, 8)}
     for name, (k_ms, p_ms, l_ms) in timed.items():
         log(f"phase timing: {name} B=2: kernel {k_ms * 1e3:.1f} us, plain "
             f"{p_ms * 1e3:.1f} us, library call "
             + (f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none")
-            + f", bound {bounds[2][name] * 1e3:.1f} us [{card}]")
+            + f", bound {bounds[2][name] * 1e3:.1f} us"
+            + (" (bf16 heights)" if name == "voxelize_padded" else "")
+            + f" [{card}]")
+    log(f"phase timing: voxelize_padded B=2 f32 heights: kernel "
+        f"{padded_f32[0] * 1e3:.1f} us, plain {padded_f32[1] * 1e3:.1f} us, "
+        f"bound {bounds[2]['voxelize_padded_f32'] * 1e3:.1f} us [{card}]")
     for b in (1, 8):
         f, v, r = prep(b, dev)
         idx = torch.where(f < n_flat, f.long() + torch.arange(
@@ -724,34 +923,18 @@ def main(argv=None) -> int:
             f"us, bound {bounds[b]['voxelize_heights'] * 1e3:.1f} us "
             f"[{card}]")
         del f, v, r, idx
-    for b in (1, 8):
-        batches = [(torch.from_numpy(make_cloud(rng, b, n_pts, cfg, False)
-                                     ).to(dev),
-                    torch.full((b,), n_pts, dtype=torch.int32, device=dev),
-                    torch.rand(b, *cfg.rgb_shape, device=dev))
-                   for _ in range(4)]
-        serve_window(model, batches, SERVE_WARMUP_S)
-        fps, medians = [], []
-        for w in range(3):
-            lat = np.array(serve_window(model, batches, SERVE_WINDOW_S))
-            fps.append(b * len(lat) / lat.sum())
-            log(f"phase timing: serving B={b} window {w + 1}/3: "
-                f"{len(lat)} requests in {lat.sum():.2f} s, "
-                f"{fps[-1]:.2f} frames/s, latency median "
-                f"{np.median(lat) * 1e3:.2f} ms, p90 "
-                f"{np.percentile(lat, 90) * 1e3:.2f} ms [{card}]")
-            medians.append(np.median(lat))
-        log(f"phase timing: serving B={b}: {np.median(fps):.2f} frames/s, "
-            f"median of 3 windows (range {min(fps):.2f}-{max(fps):.2f}) "
-            f"[{card}]")
-        if opts.profile:
-            profile_calls(
-                lambda i: model.predict_from_points(
-                    *batches[i % len(batches)], THRESH),
-                5, f"serving B={b}", float(np.median(medians)),
-                opts.profile, card)
-        del batches
-    del model
+        f, v, r = prep(b, dev, s2d="pad")
+        k2, p2 = (cuda_ms(lambda: vp.scatter_top_padded_kernel(
+                      f, v, r, n_sc, zn, bf16)),
+                  cuda_ms(lambda: vp.scatter_top_padded_plain(
+                      f, v, r, n_sc, zn, bf16)))
+        log(f"phase timing: voxelize_padded B={b} (bf16 heights): kernel "
+            f"{k2 * 1e3:.1f} us, plain {p2 * 1e3:.1f} us, bound "
+            f"{bounds[b]['voxelize_padded'] * 1e3:.1f} us [{card}]")
+        del f, v, r
+    for label, m in (("hwc", model), ("s2d2p", pad_model)):
+        serve_timing(m, label, rng, cfg, dev, n_pts, opts.profile, card)
+    del model, pad_model
 
     for _ in range(TRAIN_WARMUP_STEPS):
         trainer.fit_iteration(loader.load())
@@ -784,10 +967,15 @@ def main(argv=None) -> int:
                   source="mv3d_tpu_torch/csrc/voxelize_sweep.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:220",
                   launches=serve_launches, max_abs_err=sweep_err),
+              "voxelize_padded": dict(
+                  source="mv3d_tpu_torch/csrc/voxelize_padded.cu",
+                  replaces="mv3d_tpu/ops/voxelize_pallas.py:886",
+                  launches=padded_launches, max_abs_err=padded_err),
               "voxelize_heights": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:46",
                   launches=train_launches, max_abs_err=heights_err)}
+    log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", **rec, ms=timed[name][0],
         plain_ms=timed[name][1], bound_ms=bounds[2][name],

@@ -3,7 +3,7 @@ NVIDIA Hopper (sm_90a): lidar -> 3D-boxes inference and staged training.
 
 A port of :mod:`mv3d_tpu` (the JAX/TPU package, which stays the reference).
 Module names mirror it: ``config.py`` (its own copy of the config tree),
-``ops/`` (voxelizer and its two kernels, anchors, boxes, NMS, proposals,
+``ops/`` (voxelizer and its three kernels, anchors, boxes, NMS, proposals,
 ROI-align, detection decode), ``models/`` (trunks, subnets, ``MV3DNet``
 with its training forward), ``data/`` (host aux planes, batch loader),
 ``train/`` (targets, losses, augmentation, checkpoints, the ``MV3D`` and
@@ -11,4 +11,4 @@ with its training forward), ``data/`` (host aux planes, batch loader),
 It imports torch and numpy, and nothing of ``mv3d_tpu``, jax or flax.
 """
 
-from .config import Config, kitti_config  # noqa: F401
+from .config import Config, kitti_config, serving_config  # noqa: F401

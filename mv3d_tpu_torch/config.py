@@ -412,6 +412,17 @@ def make_config(dataset_type: str = "kitti", **overrides: Any) -> Config:
         raise ValueError(f"unexpected dataset_type: {dataset_type!r}") from None
 
 
+def serving_config(cfg: Config) -> Config:
+    """``cfg`` in the JAX package's serving configuration on the
+    accelerator (``bench.py``): the fused voxelizer in the lane-padded
+    folded layout ``s2d2p`` with a bf16 top view, and the matmul
+    ROI-align."""
+    cfg = replace(cfg, pipeline=replace(
+        cfg.pipeline, use_pallas_fused=True, use_pallas_heights=True,
+        view_layout="s2d2p", top_view_dtype="bfloat16"))
+    return replace(cfg, model=replace(cfg.model, roi_align_impl="matmul"))
+
+
 # ---------------------------------------------------------------------------
 # Overrides (parity with cfg_from_file / cfg_from_list)
 # ---------------------------------------------------------------------------

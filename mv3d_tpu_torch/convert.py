@@ -11,6 +11,13 @@ port's modules carry flax's own names (``trunk/Bottleneck_0/Conv_1`` is
   * BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and ``mean``/``var``
     -> ``running_mean``/``running_var`` (plus a zero
     ``num_batches_tracked``, which flax does not keep).
+
+A BatchNorm is recognised by its leaves, not its name: a flax module
+holding ``scale``, ``mean`` or ``var``; a torch module holding
+``running_mean`` or ``running_var``, or a 1-D ``weight`` (a conv's is
+4-D, a dense layer's 2-D), so a dict of parameters or gradients alone
+maps too. Flax auto-names most of them ``BatchNorm_<i>``, but the split
+stem's is ``stem_bn``.
 """
 
 from __future__ import annotations
@@ -33,8 +40,16 @@ def _walk(tree: Mapping[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
-def _is_bn(module_path) -> bool:
-    return module_path[-1].startswith("BatchNorm")
+def _flax_bn_modules(variables: Mapping[str, Any]):
+    return {path[:-1] for collection in ("params", "batch_stats")
+            for path, _ in _walk(variables.get(collection, {}))
+            if path[-1] in ("scale", "mean", "var")}
+
+
+def _torch_bn_modules(state_dict: Mapping[str, torch.Tensor]):
+    return {tuple(key.split(".")[:-1]) for key, t in state_dict.items()
+            if key.endswith((".running_mean", ".running_var"))
+            or (key.endswith(".weight") and t.dim() == 1)}
 
 
 def _kernel_to_torch(a: np.ndarray) -> np.ndarray:
@@ -48,11 +63,12 @@ def _kernel_to_flax(a: np.ndarray) -> np.ndarray:
 def subnet_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """One subnet's ``{"params", "batch_stats"}`` tree -> ``state_dict``."""
     sd: Dict[str, torch.Tensor] = {}
+    bn = _flax_bn_modules(variables)
     for collection in ("params", "batch_stats"):
         for path, arr in _walk(variables.get(collection, {})):
             mod, leaf = path[:-1], path[-1]
             a = np.asarray(arr, dtype=np.float32)
-            if _is_bn(mod):
+            if mod in bn:
                 name = _BN_LEAVES[leaf]
             elif leaf == "kernel":
                 name, a = "weight", _kernel_to_torch(a)
@@ -62,7 +78,7 @@ def subnet_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"unexpected leaf {'/'.join(path)}")
             sd[".".join(mod + (name,))] = torch.tensor(
                 np.ascontiguousarray(a))
-            if _is_bn(mod) and leaf == "mean":
+            if mod in bn and leaf == "mean":
                 sd[".".join(mod + ("num_batches_tracked",))] = torch.tensor(0)
     return sd
 
@@ -73,12 +89,13 @@ def subnet_variables(state_dict: Mapping[str, torch.Tensor]
     dropped): ``state_dict`` -> ``{"params", "batch_stats"}`` of f32
     numpy arrays."""
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    bn = _torch_bn_modules(state_dict)
     for key, t in state_dict.items():
         *mod, name = key.split(".")
         if name == "num_batches_tracked":
             continue
         a = t.detach().to("cpu", torch.float32, copy=True).numpy()
-        if _is_bn(mod):
+        if tuple(mod) in bn:
             leaf = _BN_INV[name]
             collection = ("batch_stats" if name.startswith("running_")
                           else "params")

@@ -2,7 +2,8 @@
 
 Port of ``mv3d_tpu/models/backbone.py``: ``ConvBnRelu``, ``DenseBnRelu``,
 the pre-activation ``Bottleneck``, ``space_to_depth`` and ``ResnetTiny``
-with the space-to-depth stems (``s2d_factor`` 2 and 4).
+with the space-to-depth stems (``s2d_factor`` 2 and 4), the prefolded
+stem of the ``s2d2`` view and the split stem of the ``s2d2p`` pair.
 
 Submodule names are flax's auto-names (``Conv_0``, ``BatchNorm_1``,
 ``Bottleneck_3`` ...), so a flax variable path maps onto a ``state_dict``
@@ -19,9 +20,8 @@ odd kernels or 1x1 (symmetric), and the 3x3/2 max-pool pads (lo, hi) =
 (total//2, total - total//2) with -inf.
 
 Not ported (``NotImplementedError``): the 7x7/2 stem (``s2d_factor=0``),
-``backbone_block="basic"``, the bilinear ``Upsample2D`` deconv
-(``upsample_features``) and the split/prefolded stems of the folded views —
-ROADMAP A3 / A9.
+``backbone_block="basic"`` and the bilinear ``Upsample2D`` deconv
+(``upsample_features``) — ROADMAP A3.
 """
 
 from __future__ import annotations
@@ -203,11 +203,23 @@ class ResnetTiny(nn.Module):
     """Stride-8 tiny bottleneck ResNet with a space-to-depth stem: factor 2
     is s2d/2 + 3x3 conv + 3x3/2 max-pool, factor 4 is s2d/4 + 3x3 conv.
     Input NHWC, output NCHW with ``base_filters * 2**(len(reps)-1) * 4``
-    channels."""
+    channels.
+
+    ``input_prefolded`` (factor 2): the input is already the folded
+    ``s2d2`` view, so the stem skips ``space_to_depth``. ``split_stem``
+    (factor 2): the input is the ``s2d2p`` (heights (B, H2, W2P, 128),
+    aux (B, H2, W2P, 8)) pair; the stem is a 3x3 conv over each
+    (``stem_h``, ``stem_aux``), summed, cropped to ``crop_w`` columns
+    before its BatchNorm (``stem_bn``), then ReLU and the max-pool. That
+    equals one conv over the concatenated channels of the unpadded view:
+    the pad lanes and columns are zeros, as SAME padding is at the true
+    edge."""
 
     def __init__(self, in_c: int, s2d_factor: int,
                  repetitions: Sequence[int] = (3, 4),
-                 base_filters: int = 64, block: str = "bottleneck"):
+                 base_filters: int = 64, block: str = "bottleneck",
+                 input_prefolded: bool = False, split_stem: bool = False,
+                 crop_w: int = 0):
         super().__init__()
         if s2d_factor not in (2, 4):
             raise NotImplementedError(
@@ -217,8 +229,21 @@ class ResnetTiny(nn.Module):
             raise NotImplementedError(
                 f"backbone_block={block!r}: only 'bottleneck' is ported "
                 f"(ROADMAP A3)")
+        if (input_prefolded or split_stem) and s2d_factor != 2:
+            raise ValueError("the folded stems need s2d_factor=2")
         self.s2d_factor = s2d_factor
-        self.ConvBnRelu_0 = ConvBnRelu(in_c * s2d_factor ** 2, base_filters)
+        self.input_prefolded = input_prefolded
+        self.split_stem = split_stem
+        self.crop_w = crop_w
+        if split_stem:
+            # lanes: 4 sub-cells x zn heights, zero-padded to 128; aux: 4
+            # intensities + 4 densities
+            self.stem_h = conv(128, base_filters, 3)
+            self.stem_aux = conv(8, base_filters, 3)
+            self.stem_bn = BatchNorm(base_filters)
+        else:
+            self.ConvBnRelu_0 = ConvBnRelu(in_c * s2d_factor ** 2,
+                                           base_filters)
         filters, c, k = base_filters, base_filters, 0
         for i, reps in enumerate(repetitions):
             for j in range(reps):
@@ -230,11 +255,24 @@ class ResnetTiny(nn.Module):
         self.n_blocks = k
         self.out_channels = c
 
+    def _split_stem(self, x):
+        heights, aux = x
+        dtype = self.stem_h.compute_dtype
+        h = (self.stem_h(heights.permute(0, 3, 1, 2))
+             + self.stem_aux(aux.permute(0, 3, 1, 2)))
+        if self.crop_w:
+            h = h[..., :self.crop_w]
+        return max_pool_same(bn_relu(self.stem_bn, h, dtype), 3, 2)
+
     def forward(self, x):
-        x = space_to_depth(x, self.s2d_factor).permute(0, 3, 1, 2)
-        x = self.ConvBnRelu_0(x)
-        if self.s2d_factor == 2:
-            x = max_pool_same(x, 3, 2)
+        if self.split_stem:
+            x = self._split_stem(x)
+        else:
+            if not self.input_prefolded:
+                x = space_to_depth(x, self.s2d_factor)
+            x = self.ConvBnRelu_0(x.permute(0, 3, 1, 2))
+            if self.s2d_factor == 2:
+                x = max_pool_same(x, 3, 2)
         for k in range(self.n_blocks):
             x = getattr(self, f"Bottleneck_{k}")(x)
         return x

@@ -19,9 +19,13 @@ Trunks a configuration does not use are not run: with ``use_front=False``
 (the default) the front view and ``FrontFeatureNet`` are skipped, as XLA
 drops them from the JAX program.
 
-Not ported (``NotImplementedError``): ``roi_align_impl="matmul"`` and
-``quant="int8"`` (ROADMAP A4 / A9), plus the options the modules below
-reject.
+The top view comes in any ``pipeline.view_layout``: ``"hwc"``, the
+folded ``"s2d2"`` view (the trunk's stem skips ``space_to_depth``) or the
+lane-padded ``"s2d2p"`` (heights, aux) pair (the trunk's split stem);
+``anchor_mask`` reads the folded occupancy of the folded layouts.
+
+Not ported (``NotImplementedError``): ``quant="int8"`` (ROADMAP A9), plus
+the options the modules below reject.
 """
 
 from __future__ import annotations
@@ -35,10 +39,11 @@ from torch import nn
 from ..config import Config, cfg as _default_cfg
 
 from ..ops import boxes3d as box3d_ops
-from ..ops.anchors import anchor_setup, non_empty_anchor_mask_structured
+from ..ops.anchors import (anchor_setup, non_empty_anchor_mask_folded,
+                           non_empty_anchor_mask_structured)
 from ..ops.detect import Detections, rcnn_nms
 from ..ops.proposal import Proposals, rpn_proposals
-from ..ops.roi_align import roi_align
+from ..ops.roi_align import roi_align, roi_align_matmul
 from ..ops.voxelize import check_dataset, check_view_layout, f32c
 from ..train import losses as loss_lib
 from ..train import targets as target_lib
@@ -77,10 +82,8 @@ class MV3DNet(nn.Module):
         m = cfg.model
         check_dataset(cfg)
         check_view_layout(cfg)
-        if m.roi_align_impl != "gather":
-            raise NotImplementedError(
-                f"roi_align_impl={m.roi_align_impl!r}: only the gather "
-                f"ROI-align is ported (ROADMAP A4, roi_align_matmul)")
+        if m.roi_align_impl not in ("gather", "matmul"):
+            raise ValueError(f"roi_align_impl {m.roi_align_impl!r}")
         if m.quant != "none":
             raise NotImplementedError(
                 f"quant={m.quant!r}: int8 serving is not ported "
@@ -89,6 +92,17 @@ class MV3DNet(nn.Module):
             raise ValueError(f"compute_dtype {m.compute_dtype!r}")
         s2d_top = 2 if m.stem_space_to_depth else 0
         s2d_rgb = 4 if m.stem_space_to_depth else 0
+        t = cfg.top
+        layout = cfg.pipeline.view_layout
+        folded = layout in ("s2d2", "s2d2p")
+        if folded and not (s2d_top == 2 and t.xn % 2 == 0
+                           and t.yn % 2 == 0):
+            raise ValueError("folded view layouts require "
+                             "stem_space_to_depth and even grid dims")
+        padded = layout == "s2d2p"
+        if padded and 4 * t.zn > 128:
+            raise ValueError("view_layout=s2d2p requires 4*zn <= 128 "
+                             "heights lanes")
         reps = tuple(m.backbone_repetitions)
         if m.rpn_stride != 4 * 2 ** (len(reps) - 1):
             raise ValueError(f"backbone_repetitions {reps} imply stride "
@@ -103,8 +117,9 @@ class MV3DNet(nn.Module):
 
         kw = dict(repetitions=reps, block=m.backbone_block,
                   upsample=m.upsample_features)
-        self.top_rpn = TopRPN(cfg.top.channels, len(m.bases),
-                              s2d_factor=s2d_top, **kw)
+        self.top_rpn = TopRPN(t.channels, len(m.bases), s2d_factor=s2d_top,
+                              input_prefolded=folded, split_stem=padded,
+                              crop_w=t.yn // 2 if padded else 0, **kw)
         self.rgb_net = RgbFeatureNet(3, s2d_factor=s2d_rgb,
                                      basenet=m.rgb_basenet, **kw)
         self.front_net = FrontFeatureNet(3, s2d_factor=s2d_top, **kw)
@@ -151,15 +166,33 @@ class MV3DNet(nn.Module):
         return {TOP_VIEW_RPN: self.top_rpn, IMAGE_FEATURE: self.rgb_net,
                 FRONT_FEATURE: self.front_net, FUSION: self.fusion}
 
-    def anchor_mask(self, top: torch.Tensor,
-                    occ: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def anchor_mask(self, top, occ: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         """(B, A) empty-anchor filter. ``occ`` is the voxelizer's
-        ``return_occ`` output; without it the view's channel sum is used."""
-        if occ is None:
+        ``return_occ`` output: (B, Xn, Yn), or folded (B, Xn/2, W, 4) for
+        the folded layouts. Without it the view's channel sum is used: per
+        sub-cell lane-group sums for the ``s2d2p`` pair and the ``s2d2``
+        view, which are the folded occupancy."""
+        t = self.cfg.top
+        zn = t.zn
+        if occ is None and isinstance(top, (tuple, list)):
+            heights, aux = (x.to(torch.float32) for x in top)
+            h4 = torch.stack([heights[..., s * zn:(s + 1) * zn].sum(-1)
+                              for s in range(4)], dim=-1)
+            occ = h4 + aux[..., :4] + aux[..., 4:]
+        elif occ is None and tuple(top.shape[1:3]) == (t.xn // 2,
+                                                       t.yn // 2):
+            v = top.to(torch.float32)
+            h4 = v[..., :4 * zn].reshape(*v.shape[:3], 4, zn).sum(-1)
+            occ = h4 + v[..., 4 * zn:4 * zn + 4] + v[..., 4 * zn + 4:]
+        elif occ is None:
             occ = top.to(torch.float32).sum(-1)
-        return non_empty_anchor_mask_structured(
-            occ, self._bases_np, self.cfg.model.rpn_stride,
-            self._feat_shape, self.cfg.pipeline.remove_empty_thresh)
+        args = (self._bases_np, self.cfg.model.rpn_stride, self._feat_shape,
+                self.cfg.pipeline.remove_empty_thresh)
+        if occ.dim() == 4:
+            return non_empty_anchor_mask_folded(occ, *args,
+                                                full_hw=(t.xn, t.yn))
+        return non_empty_anchor_mask_structured(occ, *args)
 
     def extract_features(self, top, rgb, front) -> Dict[str, torch.Tensor]:
         """Run the trunks of the configured views (in the modules' mode:
@@ -181,13 +214,15 @@ class MV3DNet(nn.Module):
           top_rois: (B, R, 4) top-view boxes (x1, y1, x2, y2).
         """
         m = self.cfg.model
+        align = roi_align_matmul if m.roi_align_impl == "matmul" \
+            else roi_align
         rois = {"top": top_rois}
         if "rgb" in self.views:
             rois["rgb"] = project_to_rgb_roi(rois3d, self.cfg)
         if "front" in self.views:
             rois["front"] = project_to_front_roi(rois3d, self.cfg)
-        return {name: roi_align(feats[name], r, 1.0 / m.pool_stride(name),
-                                m.roi_pool_size)
+        return {name: align(feats[name], r, 1.0 / m.pool_stride(name),
+                            m.roi_pool_size)
                 for name, r in rois.items()}
 
     def forward_inference(self, top: torch.Tensor, rgb: torch.Tensor,

@@ -45,25 +45,32 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class TopRPN(nn.Module):
     """BEV trunk + RPN score/delta heads; the RCNN feature is the stride-8
-    reduced map."""
+    reduced map. ``input_prefolded``, ``split_stem`` and ``crop_w`` choose
+    the trunk's stem for the folded views (:class:`ResnetTiny`); with
+    ``split_stem`` the top view is the (heights, aux) pair."""
 
     def __init__(self, in_c: int, num_bases: int, s2d_factor: int = 2,
                  repetitions: Sequence[int] = (3, 4),
-                 block: str = "bottleneck", upsample: bool = False):
+                 block: str = "bottleneck", upsample: bool = False,
+                 input_prefolded: bool = False, split_stem: bool = False,
+                 crop_w: int = 0):
         super().__init__()
         _check_upsample(upsample)
-        self.trunk = ResnetTiny(in_c, s2d_factor, repetitions, block=block)
+        self.trunk = ResnetTiny(in_c, s2d_factor, repetitions, block=block,
+                                input_prefolded=input_prefolded,
+                                split_stem=split_stem, crop_w=crop_w)
         self.reduce = ConvBnRelu(self.trunk.out_channels, 128, 1)
         self.rpn_conv = ConvBnRelu(128, 128, 3)
         self.rpn_score = Conv2d(128, 2 * num_bases, 1)
         self.rpn_delta = Conv2d(128, 4 * num_bases, 1)
 
-    def forward(self, top_view: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, top_view) -> Dict[str, torch.Tensor]:
         x = self.reduce(self.trunk(top_view))
         up = self.rpn_conv(x)
         scores = _nhwc(self.rpn_score(up)).to(torch.float32)
         deltas = _nhwc(self.rpn_delta(up)).to(torch.float32)
-        b = top_view.shape[0]
+        b = (top_view[0] if isinstance(top_view, (tuple, list))
+             else top_view).shape[0]
         return {
             "features": _nhwc(x),                       # (B, H/8, W/8, 128)
             "scores": scores.reshape(b, -1, 2),         # (B, A, 2)

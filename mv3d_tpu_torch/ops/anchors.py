@@ -4,7 +4,9 @@ Port of ``mv3d_tpu/ops/anchors.py``. The anchor set is built once in numpy
 (``mv3d_car_bases``, ``make_anchors`` and ``anchor_setup`` are copied: the
 JAX module imports jax, which the machine that runs the port lacks). The
 filter is ``non_empty_anchor_mask_structured``'s ``mode="window"`` on a
-full-resolution occupancy map.
+full-resolution occupancy map, and ``_non_empty_anchor_mask_folded``'s
+decision on the folded occupancy of the ``s2d2``/``s2d2p`` views
+(:func:`non_empty_anchor_mask_folded`).
 
 The window sums use an exclusive integral image in float64. Counts sum
 exactly there, so the mask matches the JAX package bit for bit on the
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import Config, cfg as _default_cfg
+from .voxelize import unfold_occ4
 
 
 def mv3d_car_bases() -> np.ndarray:
@@ -111,3 +114,21 @@ def non_empty_anchor_mask_structured(occ: torch.Tensor, bases: np.ndarray,
                 - s[:, yhi, xlo] + s[:, ylo, xlo])          # (B, gh, gw)
         masks.append(rect > threshold)
     return torch.stack(masks, dim=-1).reshape(bsz, -1)
+
+
+def non_empty_anchor_mask_folded(occ4: torch.Tensor, bases: np.ndarray,
+                                 stride: int,
+                                 feature_shape: Tuple[int, int],
+                                 threshold: float,
+                                 full_hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, h2, w, 4) folded occupancy (sub = u*2 + v for the full-res cell
+    (2i+u, 2j+v), the folded voxelizers' ``return_occ``) -> (B, A) mask.
+
+    The JAX package sums each window by row/column parity on the folded map
+    to skip the relayout; here the map is unfolded (:func:`unfold_occ4`
+    drops the padded columns) and filtered at full resolution, which gives
+    the same decisions for the count occupancy (integer sums are exact in
+    both)."""
+    h, w = full_hw
+    return non_empty_anchor_mask_structured(
+        unfold_occ4(occ4, h, w), bases, stride, feature_shape, threshold)

@@ -22,6 +22,8 @@ from typing import List, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = tuple(os.path.join(CSRC, f) for f in (
+    "voxelize_sweep.cu", "voxelize_padded.cu", "voxelize_heights.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
@@ -85,8 +87,11 @@ def build_libraries(sources: Sequence[str]) -> List[str]:
 
 @functools.lru_cache(maxsize=None)
 def load_library(source: str) -> ctypes.CDLL:
-    """Build ``source`` if needed and load its library (once)."""
-    return ctypes.CDLL(build_libraries([source])[0])
+    """Load ``source``'s library (once); the first call builds every
+    kernel of the port that is not built yet, in parallel."""
+    sources = list(SOURCES) if source in SOURCES else [source]
+    libs = build_libraries(sources)
+    return ctypes.CDLL(libs[sources.index(source)])
 
 
 def check_launch(err: int, what: str) -> None:

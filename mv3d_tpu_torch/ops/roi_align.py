@@ -1,9 +1,12 @@
 """Bilinear ROI-align, batched over frames.
 
-Port of ``mv3d_tpu/ops/roi_align.py::roi_align`` (the gather variant, the
-default): a fixed grid of ``samples x samples`` taps per bin, averaged.
-Taps outside the map read the clamped edge cell with the unclamped
-fractional weight, as the JAX gather does. ROIs are in view coordinates
+Port of ``mv3d_tpu/ops/roi_align.py``'s two variants: :func:`roi_align`
+(the gather variant, the default) and :func:`roi_align_matmul`
+(``model.roi_align_impl="matmul"``). Both average a fixed grid of
+``samples x samples`` taps per bin. They differ at the edge: the gather
+variant reads the clamped edge cell with the unclamped fractional weight,
+as the JAX gather does; the matmul variant clamps the tap itself to
+[0, dim-1] first, as the JAX einsums do. ROIs are in view coordinates
 (x1, y1, x2, y2), x across the feature width, scaled by ``spatial_scale``.
 Bin sizes divide by a device tensor: CUDA divides by a Python scalar as a
 reciprocal multiply, and a last-bit change in a far-out ROI's bin moves
@@ -76,3 +79,32 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
             + tap(y1i, x0i) * wy1 * (1 - wx1)
             + tap(y1i, x1i) * wy1 * wx1)
     return vals.mean(dim=(4, 5))
+
+
+def roi_align_matmul(features: torch.Tensor, rois: torch.Tensor,
+                     spatial_scale: float, pooled: Tuple[int, int] = (6, 6),
+                     samples: int = 2) -> torch.Tensor:
+    """(B, H, W, C) features x (B, R, 4) rois -> (B, R, ph, pw, C) in the
+    features' dtype: ROI-align as two contractions with tent-weight
+    matrices. A tap at y, clamped to [0, H-1], samples
+    ``sum_h relu(1 - |y - h|) * F[h]``, and the taps are separable in y
+    and x:
+
+        B[b,r,p,s,w,c] = sum_h WY[b,r,p,s,h] * F[b,h,w,c]
+        out[b,r,p,q,c] = mean_{s,t} sum_w WX[b,r,q,t,w] * B[b,r,p,s,w,c]
+
+    The weights are computed in f32 and cast to the features' dtype, as
+    the JAX package does; the contractions are ``torch.einsum``."""
+    _, h, w, _ = features.shape
+    ys, xs = _tap_axes(rois.to(torch.float32), spatial_scale, pooled,
+                       samples)
+    ys = torch.clamp(ys, 0.0, float(h - 1))
+    xs = torch.clamp(xs, 0.0, float(w - 1))
+    dev, dtype = features.device, features.dtype
+    wy = torch.relu(1.0 - torch.abs(
+        ys[..., None] - torch.arange(h, dtype=torch.float32, device=dev)))
+    wx = torch.relu(1.0 - torch.abs(
+        xs[..., None] - torch.arange(w, dtype=torch.float32, device=dev)))
+    big = torch.einsum("brpsh,bhwc->brpswc", wy.to(dtype), features)
+    out = torch.einsum("brqtw,brpswc->brpqstc", wx.to(dtype), big)
+    return out.mean(dim=(4, 5))

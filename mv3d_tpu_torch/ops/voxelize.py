@@ -1,23 +1,33 @@
 """Lidar voxelization into the BEV ("top") and cylindrical front views.
 
-Port of ``mv3d_tpu/ops/voxelize.py`` for the standard ``view_layout="hwc"``
-view. Semantics are bit-identical to the JAX package and to its numpy
-oracle ``mv3d_tpu/ops/voxelize_ref.py``: strict crops, the inclusive
-slice-boundary redirect, first-max-point intensity and log-count density.
+Port of ``mv3d_tpu/ops/voxelize.py``. Semantics are bit-identical to the
+JAX package and to its numpy oracle ``mv3d_tpu/ops/voxelize_ref.py``:
+strict crops, the inclusive slice-boundary redirect, first-max-point
+intensity and log-count density.
 
-Without a host aux plane the top view runs through one kernel, the fused
-sweep (:mod:`mv3d_tpu_torch.ops.voxelize_sweep`). With one (``aux``, the
-(B, Xn, Yn, 2) intensity/density plane the loader computes on the host
-when ``pipeline.host_aux_channels`` is set) only the height channels are
-computed on the device, by the heights scatter-max kernel
-(:mod:`mv3d_tpu_torch.ops.voxelize_heights`). In the JAX package the
-``pipeline`` options ``use_pallas_fused``, ``use_pallas_heights``,
-``voxel_order`` and ``sweep_kernel`` only choose a TPU formulation (XLA
-scatters, a sorted Pallas sweep, its loop body, how points are grouped) of
-these functions, so the port computes each through its one kernel
-whatever they say. Options that change the result's layout raise
-``NotImplementedError``: the folded ``s2d2``/``s2d2p`` views (ROADMAP A9 /
-B2), and non-KITTI datasets (ROADMAP A1).
+The top view comes in the three layouts of ``pipeline.view_layout``:
+
+  * ``"hwc"``: (B, Xn, Yn, Zn+2). Without a host aux plane it runs through
+    the fused sweep (:mod:`mv3d_tpu_torch.ops.voxelize_sweep`, K1). With
+    one (``aux``, the (B, Xn, Yn, 2) intensity/density plane the loader
+    computes on the host when ``pipeline.host_aux_channels`` is set) only
+    the height channels are computed on the device, by the heights
+    scatter-max (:mod:`mv3d_tpu_torch.ops.voxelize_heights`, K3).
+  * ``"s2d2"``: the 2x2-folded view (B, Xn/2, Yn/2, 4*(Zn+2)) of
+    :func:`fold_view_s2d2`, through K1 with the cells numbered in folded
+    order, so the sweep's output is the folded view without a relayout.
+  * ``"s2d2p"``: the lane-padded pair of :func:`fold_view_s2d2p`, heights
+    (B, Xn/2, W2P, 128) and aux (B, Xn/2, W2P, 8), through the lane-padded
+    sweep (:mod:`mv3d_tpu_torch.ops.voxelize_padded`, K2).
+
+The folded layouts return the folded (B, Xn/2, W, 4) occupancy
+(:func:`unfold_occ4` relays it out) and take no host aux plane. In the JAX
+package the ``pipeline`` options ``use_pallas_fused``,
+``use_pallas_heights``, ``voxel_order`` and ``sweep_kernel`` only choose a
+TPU formulation (XLA scatters, a sorted Pallas sweep, its loop body, how
+points are grouped) of these functions, so the port computes each through
+its one kernel whatever they say. Non-KITTI datasets raise
+``NotImplementedError`` (ROADMAP A1).
 
 Quantization divides by a 0-dim tensor on the points' device, never by a
 Python float: PyTorch's CUDA division by a CPU scalar multiplies by its
@@ -31,11 +41,15 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import Config, cfg as _default_cfg
 
 from .voxelize_heights import scatter_max_batched
+from .voxelize_padded import LANES, scatter_top_padded_batched
 from .voxelize_sweep import scatter_top_fused_batched
+
+VIEW_LAYOUTS = ("hwc", "s2d2", "s2d2p")
 
 
 def f32c(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -52,10 +66,15 @@ def check_dataset(cfg: Config) -> None:
 
 
 def check_view_layout(cfg: Config) -> None:
-    if cfg.pipeline.view_layout != "hwc":
-        raise NotImplementedError(
-            f"view_layout={cfg.pipeline.view_layout!r}: the folded views "
-            f"are not ported (ROADMAP A9 / B2)")
+    if cfg.pipeline.view_layout not in VIEW_LAYOUTS:
+        raise ValueError(f"view_layout={cfg.pipeline.view_layout!r}: "
+                         f"expected one of {VIEW_LAYOUTS}")
+
+
+def folded_pad_width(yn: int) -> int:
+    """Padded folded width w2p of the lane-padded "s2d2p" layout: yn/2
+    rounded up to a multiple of 16, as the JAX package pads it."""
+    return -(-(yn // 2) // 16) * 16
 
 
 def _crop_mask(points: torch.Tensor, cfg: Config,
@@ -74,16 +93,25 @@ def _crop_mask(points: torch.Tensor, cfg: Config,
 
 
 def _top_prep(points: torch.Tensor, cfg: Config,
-              num_points: Optional[torch.Tensor]):
-    """Per-point quantization (row-major cells) of a (B, N, 4) batch.
+              num_points: Optional[torch.Tensor], s2d=False):
+    """Per-point quantization of a (B, N, 4) batch.
 
     Returns (valid, cell, flat, val, refl), each (B, N): crop mask, cell id
     (dump cell ``n_cells`` for invalid points), ``flat = cell*zn + s_eff``
     with the inclusive-boundary redirect applied (dump ``n_cells*zn``), the
-    slice height value and reflectance."""
+    slice height value and reflectance.
+
+    ``s2d=True`` numbers the cells in the folded 2x2 order (supercell-major,
+    (dy, dx)-minor) instead of row-major. ``s2d="pad"`` also lane-pads:
+    ``flat = sc*128 + sub*zn + s_eff`` over the (Xn/2, W2P) supercell grid,
+    and ``cell`` is the folded cell ``sc*4 + sub`` (dump ``n_sc*128`` and
+    ``n_sc*4``)."""
     t = cfg.top
     xn, yn, zn = t.xn, t.yn, t.zn
     n_cells = xn * yn
+    if s2d and (xn % 2 or yn % 2):
+        raise ValueError(f"the folded layouts need an even grid, got "
+                         f"{xn}x{yn}")
     points = points.to(torch.float32)
     valid = _crop_mask(points, cfg, num_points)
 
@@ -105,9 +133,60 @@ def _top_prep(points: torch.Tensor, cfg: Config,
     s_eff = torch.where(exact, s - 1, s)
     val = torch.where(valid, torch.where(exact, 1.0, frac), 0.0)
 
-    cell = torch.where(valid, row * yn + col, n_cells)
+    if s2d == "pad":
+        w2p = folded_pad_width(yn)
+        n_sc = (xn // 2) * w2p
+        supercell = (row // 2) * w2p + col // 2
+        sub = (row % 2) * 2 + col % 2
+        cell = torch.where(valid, supercell * 4 + sub, n_sc * 4)
+        flat = torch.where(valid, supercell * LANES + sub * zn + s_eff,
+                           n_sc * LANES)
+        return valid, cell, flat, val, refl
+    if s2d:
+        supercell = (row // 2) * (yn // 2) + col // 2
+        cell_id = supercell * 4 + (row % 2) * 2 + col % 2
+    else:
+        cell_id = row * yn + col
+    cell = torch.where(valid, cell_id, n_cells)
     flat = torch.where(valid, cell * zn + s_eff, n_cells * zn)
     return valid, cell, flat, val, refl
+
+
+def fold_view_s2d2(view: torch.Tensor) -> torch.Tensor:
+    """Standard (..., H, W, Zn+2) top view -> the folded "s2d2" layout
+    (..., H/2, W/2, 4*(Zn+2)): [heights (dy, dx, s) -> 4*Zn] +
+    [intensity (dy, dx) -> 4] + [density (dy, dx) -> 4] (a fixed channel
+    permutation of ``space_to_depth``, the JAX package's order)."""
+    *lead, h, w, c = view.shape
+    zn = c - 2
+    v = view.reshape(*lead, h // 2, 2, w // 2, 2, c)
+    v = v.movedim(-4, -3)                       # (..., h2, w2, 2, 2, c)
+    heights = v[..., :zn].reshape(*lead, h // 2, w // 2, 4 * zn)
+    inten = v[..., zn].reshape(*lead, h // 2, w // 2, 4)
+    dens = v[..., zn + 1].reshape(*lead, h // 2, w // 2, 4)
+    return torch.cat([heights, inten, dens], dim=-1)
+
+
+def fold_view_s2d2p(view: torch.Tensor):
+    """Standard (..., H, W, Zn+2) top view -> the lane-padded "s2d2p" pair:
+    heights (..., H/2, W2P, 128) with lanes ``sub*zn + s`` (zeros above
+    4*Zn and in the padded columns) and aux (..., H/2, W2P, 8) =
+    [intensity x4, density x4]; :func:`fold_view_s2d2` padded."""
+    *_, w, c = view.shape
+    zn = c - 2
+    wpad = folded_pad_width(w) - w // 2
+    folded = fold_view_s2d2(view)
+    heights = F.pad(folded[..., :4 * zn], (0, LANES - 4 * zn, 0, wpad))
+    aux = F.pad(folded[..., 4 * zn:], (0, 0, 0, wpad))
+    return heights, aux
+
+
+def unfold_occ4(occ4: torch.Tensor, xn: int, yn: int) -> torch.Tensor:
+    """Folded (..., h2, w2p, 4) occupancy (sub = u*2 + v for the full-res
+    cell (2i+u, 2j+v)) -> full-res (..., xn, yn)."""
+    *lead, h2, w2p, _ = occ4.shape
+    v = occ4.reshape(*lead, h2, w2p, 2, 2).movedim(-2, -3)
+    return v.reshape(*lead, xn, 2 * w2p)[..., :yn]
 
 
 def _occ_from_cells(heights2d, intensity, density, counts, cfg: Config):
@@ -128,28 +207,44 @@ def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _density(counts: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.log(counts + 1.0) / f32c(math.log(32), counts),
+                       max=1.0)
+
+
 def lidar_to_top_batch(points: torch.Tensor, cfg: Config = _default_cfg,
                        num_points: Optional[torch.Tensor] = None,
                        aux: Optional[torch.Tensor] = None,
                        return_occ: bool = False):
-    """(B, N, 4) -> (B, Xn, Yn, Zn+2) top view; with ``return_occ`` also the
-    (B, Xn, Yn) occupancy the anchor filter reads.
+    """(B, N, 4) -> the top view in ``pipeline.view_layout``; with
+    ``return_occ`` also the occupancy the anchor filter reads: (B, Xn, Yn)
+    for ``"hwc"``, folded (B, Xn/2, W, 4) for ``"s2d2"`` (W = Yn/2) and
+    ``"s2d2p"`` (W = W2P).
 
-    Channels 0..Zn-1: per-slice max height above the slice floor (z-cell
-    units); Zn: reflectance of the highest point; Zn+1:
+    ``"hwc"`` channels 0..Zn-1: per-slice max height above the slice floor
+    (z-cell units); Zn: reflectance of the highest point; Zn+1:
     ``min(1, log(count+1)/log 32)``. Rows/cols are flipped like the
-    reference (top[Xn-1-qx, Yn-1-qy]).
+    reference (top[Xn-1-qx, Yn-1-qy]). The folded layouts hold the same
+    values in :func:`fold_view_s2d2` / :func:`fold_view_s2d2p` order; the
+    ``"s2d2p"`` view is the (heights, aux) pair.
 
-    With ``aux`` (B, Xn, Yn, 2), the host's [intensity, density] plane,
-    only the heights are computed here; the view is then f32 whatever
-    ``top_view_dtype`` says, and the occupancy is the f32 sum of all its
-    channels, as in the JAX package's aux branch."""
+    With ``aux`` (B, Xn, Yn, 2), the host's [intensity, density] plane
+    (``"hwc"`` only), only the heights are computed here; the view is then
+    f32 whatever ``top_view_dtype`` says, and the occupancy is the f32 sum
+    of all its channels, as in the JAX package's aux branch."""
     check_view_layout(cfg)
+    layout = cfg.pipeline.view_layout
+    if aux is not None and layout != "hwc":
+        raise ValueError("the folded view layouts compute all channels on "
+                         "the device; they take no host aux plane")
+    if layout == "s2d2p":
+        return _top_s2d2p(points, cfg, num_points, return_occ)
     t = cfg.top
     xn, yn, zn = t.xn, t.yn, t.zn
     n_cells = xn * yn
     bsz = points.shape[0]
-    _, _, flat, val, refl = _top_prep(points, cfg, num_points)
+    _, _, flat, val, refl = _top_prep(points, cfg, num_points,
+                                      s2d=layout == "s2d2")
     if aux is not None:
         heights = scatter_max_batched(flat, val, n_cells * zn)
         top = torch.cat([heights.reshape(bsz, xn, yn, zn),
@@ -157,17 +252,58 @@ def lidar_to_top_batch(points: torch.Tensor, cfg: Config = _default_cfg,
         return (top, _sum_in_order(top)) if return_occ else top
     heights, counts, intensity = scatter_top_fused_batched(
         flat, val, torch.where(flat < n_cells * zn, refl, 0.0), n_cells, zn)
-    density = torch.clamp(torch.log(counts + 1.0) / f32c(math.log(32), counts),
-                          max=1.0)
+    density = _density(counts)
     view_dtype = getattr(torch, cfg.pipeline.top_view_dtype)
     heights2d = heights.reshape(bsz, n_cells, zn).to(view_dtype)
-    top = torch.cat([heights2d, intensity[..., None].to(view_dtype),
-                     density[..., None].to(view_dtype)], dim=2)
-    top = top.reshape(bsz, xn, yn, zn + 2)
+    if layout == "s2d2":
+        # cells are in folded order: the reshapes assemble the folded view
+        h2, w2 = xn // 2, yn // 2
+        top = torch.cat([heights2d.reshape(bsz, h2, w2, 4 * zn),
+                         intensity.reshape(bsz, h2, w2, 4).to(view_dtype),
+                         density.reshape(bsz, h2, w2, 4).to(view_dtype)],
+                        dim=-1)
+        occ_shape = (bsz, h2, w2, 4)
+    else:
+        top = torch.cat([heights2d, intensity[..., None].to(view_dtype),
+                         density[..., None].to(view_dtype)], dim=2)
+        top = top.reshape(bsz, xn, yn, zn + 2)
+        occ_shape = (bsz, xn, yn)
     if not return_occ:
         return top
     occ = _occ_from_cells(heights2d, intensity, density, counts, cfg)
-    return top, occ.reshape(bsz, xn, yn)
+    return top, occ.reshape(occ_shape)
+
+
+def _top_s2d2p(points: torch.Tensor, cfg: Config,
+               num_points: Optional[torch.Tensor], return_occ: bool):
+    """The ``"s2d2p"`` branch of :func:`lidar_to_top_batch`: the lane-padded
+    sweep's heights blocks are the (B, h2, w2p, 128) stem input, and its
+    count/intensity become the (B, h2, w2p, 8) aux plane. The sweep writes
+    heights in the view dtype (the f32 max rounded once) unless the
+    occupancy needs the f32 heights (``remove_empty_thresh != 0``)."""
+    t = cfg.top
+    xn, yn, zn = t.xn, t.yn, t.zn
+    h2, w2p = xn // 2, folded_pad_width(yn)
+    n_sc = h2 * w2p
+    bsz = points.shape[0]
+    _, _, flat, val, refl = _top_prep(points, cfg, num_points, s2d="pad")
+    view_dtype = getattr(torch, cfg.pipeline.top_view_dtype)
+    count_occ = cfg.pipeline.remove_empty_thresh == 0.0
+    heights_b, counts, inten = scatter_top_padded_batched(
+        flat, val, torch.where(flat < n_sc * LANES, refl, 0.0), n_sc, zn,
+        heights_dtype=view_dtype if count_occ else torch.float32)
+    heights = heights_b.reshape(bsz, h2, w2p, LANES).to(view_dtype)
+    inten4 = inten.reshape(bsz, h2, w2p, 4)
+    dens4 = _density(counts).reshape(bsz, h2, w2p, 4)
+    top = (heights, torch.cat([inten4, dens4], dim=-1).to(view_dtype))
+    if not return_occ:
+        return top
+    if count_occ:
+        return top, counts.reshape(bsz, h2, w2p, 4)
+    hv = heights_b.reshape(bsz, h2, w2p, LANES)
+    h4 = torch.stack([hv[..., s * zn:(s + 1) * zn].sum(-1)
+                      for s in range(4)], dim=-1)
+    return top, h4 + inten4 + dens4
 
 
 def lidar_to_front_batch(points: torch.Tensor, cfg: Config = _default_cfg,

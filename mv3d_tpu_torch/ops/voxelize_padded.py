@@ -1,0 +1,142 @@
+"""Lane-padded BEV voxelizer sweep: a hand-written Hopper kernel and its
+plain twin.
+
+Port of ``mv3d_tpu/ops/voxelize_pallas.py::scatter_top_padded_batched``
+(body ``_fused_kernel_grouped`` with ``lane_pad=True``), the voxelizer of
+the ``view_layout="s2d2p"`` serving configuration. Points come quantized
+to ``flat = sc*128 + sub*zn + s_eff`` over the 2x2-folded supercells ``sc``
+of the (h2, w2p) grid, ``sub = dy*2 + dx``; per frame it computes
+
+  * ``heights[flat]``   the max height value per slot, zero where no point
+    lands (lanes 4*zn..127 and the padded columns stay zero), so the
+    (B, n_sc*128) output is the (B, h2, w2p, 128) conv-stem input;
+  * ``count[cell]``     the number of points in folded cell
+    ``cell = sc*4 + sub``;
+  * ``intensity[cell]`` the reflectance of the point with the largest
+    ``qz = s_eff + v``, the lowest original index winning ties.
+
+Entries with ``flat >= n_sc*128``, or in a lane ``>= 4*zn``, are padding.
+Heights come in f32 or bf16; bf16 is the f32 max rounded once
+(round-to-nearest is monotone, so it commutes with max).
+
+The kernel (``mv3d_tpu_torch/csrc/voxelize_padded.cu``) is K1's atomic
+design with the lane-padded decode (see its note). The plain version
+decodes the same way and runs the sweeps' shared arithmetic
+(:func:`.voxelize_sweep.sweep_plain`), then rounds heights once.
+
+Dispatch: a tensor on the CPU goes to :func:`scatter_top_padded_plain`; a
+CUDA tensor goes to the kernel, which raises if it cannot be built or
+launched. There is no fallback. ``scatter_top_padded_batched.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import Tuple
+
+import torch
+
+from .cuda_build import CSRC, check_launch, load_library
+from .voxelize_sweep import check_inputs, sweep_plain
+
+SOURCE = os.path.join(CSRC, "voxelize_padded.cu")
+LANES = 128          # heights lanes per supercell
+_HEIGHTS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = load_library(SOURCE)
+    fn = lib.mv3d_voxelize_padded
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    fn.argtypes = [p, p, p, i64, i64, i64, i32, i32, p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_shape(n_sc: int, zn: int, heights_dtype: torch.dtype) -> None:
+    if not 0 < 4 * zn <= LANES:
+        raise ValueError(f"the lane-padded sweep needs 0 < 4*zn <= {LANES}, "
+                         f"got zn={zn}")
+    if n_sc * LANES >= 2 ** 31:
+        raise ValueError(f"n_sc={n_sc}: flat ids must fit in int32")
+    if heights_dtype not in _HEIGHTS_DTYPES:
+        raise TypeError(f"heights_dtype {heights_dtype}: expected one of "
+                        f"{_HEIGHTS_DTYPES}")
+
+
+def scatter_top_padded_kernel(flat: torch.Tensor, hval: torch.Tensor,
+                              refl: torch.Tensor, n_sc: int, zn: int,
+                              heights_dtype: torch.dtype = torch.float32
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Launch the CUDA kernel on CUDA tensors (no fallback)."""
+    check_inputs(flat, hval, refl)
+    _check_shape(n_sc, zn, heights_dtype)
+    if flat.device.type != "cuda":
+        raise ValueError(f"the lane-padded sweep kernel needs CUDA tensors, "
+                         f"got {flat.device}")
+    lib = _library()
+    flat, hval, refl = (t.contiguous() for t in (flat, hval, refl))
+    bsz, n = flat.shape
+    dev = flat.device
+    n_cells = n_sc * 4
+    heights = torch.zeros(bsz, n_sc * LANES, dtype=heights_dtype, device=dev)
+    count = torch.empty(bsz, n_cells, dtype=torch.float32, device=dev)
+    intensity = torch.empty(bsz, n_cells, dtype=torch.float32, device=dev)
+    cnt = torch.zeros(bsz, n_cells, dtype=torch.int32, device=dev)
+    best = torch.zeros(bsz, n_cells, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mv3d_voxelize_padded(
+            flat.data_ptr(), hval.data_ptr(), refl.data_ptr(), bsz, n, n_sc,
+            zn, int(heights_dtype == torch.bfloat16), heights.data_ptr(),
+            count.data_ptr(), intensity.data_ptr(), cnt.data_ptr(),
+            best.data_ptr(), stream)
+    check_launch(err, "lane-padded voxelize sweep")
+    scatter_top_padded_batched.launches += 1
+    return heights, count, intensity
+
+
+def scatter_top_padded_plain(flat: torch.Tensor, hval: torch.Tensor,
+                             refl: torch.Tensor, n_sc: int, zn: int,
+                             heights_dtype: torch.dtype = torch.float32
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The same function in plain PyTorch ops, on any device."""
+    check_inputs(flat, hval, refl)
+    _check_shape(n_sc, zn, heights_dtype)
+    f = flat.to(torch.int64)
+    lane = f & (LANES - 1)
+    sub = lane // zn
+    live = (f >= 0) & (f < n_sc * LANES) & (sub < 4)
+    heights, count, intensity = sweep_plain(
+        f, (f >> 7) * 4 + sub, lane - sub * zn, live, hval, refl,
+        n_sc * LANES, n_sc * 4)
+    return heights.to(heights_dtype), count, intensity
+
+
+def scatter_top_padded_batched(flat: torch.Tensor, hval: torch.Tensor,
+                               refl: torch.Tensor, n_sc: int, zn: int,
+                               heights_dtype: torch.dtype = torch.float32
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(B, N) int32 ``flat``, f32 ``hval``/``refl`` -> heights
+    (B, n_sc*128) in ``heights_dtype``, count (B, n_sc*4) and intensity
+    (B, n_sc*4) in f32.
+
+    CPU tensors take the plain version; CUDA tensors take the kernel."""
+    if flat.device.type == "cpu":
+        return scatter_top_padded_plain(flat, hval, refl, n_sc, zn,
+                                        heights_dtype)
+    if flat.device.type == "cuda":
+        return scatter_top_padded_kernel(flat, hval, refl, n_sc, zn,
+                                         heights_dtype)
+    raise ValueError(f"no lane-padded voxelizer sweep for device "
+                     f"{flat.device}")
+
+
+scatter_top_padded_batched.launches = 0

@@ -59,7 +59,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(flat, hval, refl):
+def check_inputs(flat, hval, refl):
     if flat.dim() != 2 or hval.shape != flat.shape or refl.shape != flat.shape:
         raise ValueError(f"expected matching (B, N) inputs, got "
                          f"{tuple(flat.shape)}, {tuple(hval.shape)}, "
@@ -77,7 +77,7 @@ def scatter_top_fused_kernel(flat: torch.Tensor, hval: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch the CUDA kernel on CUDA tensors (no fallback)."""
-    _check_inputs(flat, hval, refl)
+    check_inputs(flat, hval, refl)
     if flat.device.type != "cuda":
         raise ValueError(f"the sweep kernel needs CUDA tensors, got "
                          f"{flat.device}")
@@ -101,27 +101,23 @@ def scatter_top_fused_kernel(flat: torch.Tensor, hval: torch.Tensor,
     return heights, count, intensity
 
 
-def scatter_top_fused_plain(flat: torch.Tensor, hval: torch.Tensor,
-                            refl: torch.Tensor, n_cells: int, zn: int
-                            ) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """The same function in plain PyTorch ops, on any device: scatter-amax
-    for heights, index_add for counts, and an int64 scatter-amax on the
-    kernel's packed (qz bits, ~index) key for the intensity winner."""
-    _check_inputs(flat, hval, refl)
-    bsz, n = flat.shape
-    dev = flat.device
-    n_flat = n_cells * zn
-    f = flat.to(torch.int64)
-    live = (f >= 0) & (f < n_flat)
-    f = torch.where(live, f, 0)
+def sweep_plain(slot: torch.Tensor, cell: torch.Tensor, s_eff: torch.Tensor,
+                live: torch.Tensor, hval: torch.Tensor, refl: torch.Tensor,
+                n_slots: int, n_cells: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sweeps' arithmetic in plain PyTorch ops, on decoded (B, N) int64
+    height ``slot``, ``cell`` and ``s_eff`` of the ``live`` points:
+    scatter-amax for heights, index_add for counts, and an int64
+    scatter-amax on the kernels' packed (qz bits, ~index) key for the
+    intensity winner. Dead points scatter identities (max with 0, add 0,
+    key 0) at slot and cell 0."""
+    bsz, n = slot.shape
+    dev = slot.device
+    slot, cell, s_eff = (torch.where(live, x, 0) for x in (slot, cell, s_eff))
     frame = torch.arange(bsz, device=dev, dtype=torch.int64)[:, None]
-    cell = f // zn
-    s_eff = f - cell * zn
 
-    # dead points scatter identities (max with 0, add 0, key 0) at slot 0
-    heights = torch.zeros(bsz * n_flat, dtype=torch.float32, device=dev)
-    heights.scatter_reduce_(0, (frame * n_flat + f).reshape(-1),
+    heights = torch.zeros(bsz * n_slots, dtype=torch.float32, device=dev)
+    heights.scatter_reduce_(0, (frame * n_slots + slot).reshape(-1),
                             torch.where(live, hval, 0.0).reshape(-1), "amax")
     cidx = (frame * n_cells + cell).reshape(-1)
     cnt = torch.zeros(bsz * n_cells, dtype=torch.int32, device=dev)
@@ -137,8 +133,23 @@ def scatter_top_fused_plain(flat: torch.Tensor, hval: torch.Tensor,
     winner = _KEY_LOW - (best & _KEY_LOW)
     won = torch.gather(refl, 1, torch.where(best > 0, winner, 0))
     intensity = torch.where(best > 0, won, 0.0)
-    return (heights.reshape(bsz, n_flat),
+    return (heights.reshape(bsz, n_slots),
             cnt.reshape(bsz, n_cells).to(torch.float32), intensity)
+
+
+def scatter_top_fused_plain(flat: torch.Tensor, hval: torch.Tensor,
+                            refl: torch.Tensor, n_cells: int, zn: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The same function in plain PyTorch ops, on any device
+    (:func:`sweep_plain` on ``cell = flat // zn``)."""
+    check_inputs(flat, hval, refl)
+    n_flat = n_cells * zn
+    f = flat.to(torch.int64)
+    live = (f >= 0) & (f < n_flat)
+    cell = f // zn
+    return sweep_plain(f, cell, f - cell * zn, live, hval, refl, n_flat,
+                       n_cells)
 
 
 def scatter_top_fused_batched(flat: torch.Tensor, hval: torch.Tensor,

@@ -3,8 +3,9 @@ training).
 
 Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D`` and ``Trainer``:
 
-  * ``MV3D.predict`` (views in) and ``predict_from_points`` (raw padded
-    lidar points in, optionally with the host aux plane; voxelization and
+  * ``MV3D.predict`` (views in; the ``s2d2p`` layout's view is the
+    (heights, aux) pair) and ``predict_from_points`` (raw padded lidar
+    points in, optionally with the host aux plane; voxelization and
     detection on the model's device). Both take one frame or a batch and
     return the batch's fixed-shape :class:`Detections` (boxes3d
     (B, R, 8, 3), probs (B, R), mask (B, R)) as tensors on the model's
@@ -29,7 +30,8 @@ JAX variables tree (:mod:`mv3d_tpu_torch.convert`) or from checkpoints.
 
 Not ported (ROADMAP A6): validation interleave and ``validation_iou``
 (the host polygon IoU), ``MetricsWriter`` and the dashboard, debug image
-dumps, ``remat``, the orbax backend, ``debug_mode``.
+dumps, ``remat``, the orbax backend, ``debug_mode``; training in the
+folded view layouts (``Trainer`` raises for them).
 """
 
 from __future__ import annotations
@@ -169,9 +171,12 @@ class MV3D:
 
     # -- inference ----------------------------------------------------------
 
-    def _batch(self, x, ndim: int, dtype=torch.float32) -> torch.Tensor:
+    def _batch(self, x, ndim: int, dtype=torch.float32):
         """Array or tensor -> tensor on the model's device, with a batch
-        dimension added to a single frame."""
+        dimension added to a single frame; a (heights, aux) pair is
+        batched element by element."""
+        if isinstance(x, (tuple, list)):
+            return tuple(self._batch(v, ndim, dtype) for v in x)
         t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
         t = t.to(self.device, dtype)
         return t[None] if t.dim() == ndim - 1 else t
@@ -179,7 +184,9 @@ class MV3D:
     @torch.inference_mode()
     def predict(self, top_view, front_view, rgb_image,
                 score_threshold: Optional[float] = None) -> Detections:
-        """Detection from precomputed NHWC views (single frame or batch)."""
+        """Detection from precomputed NHWC views (single frame or batch;
+        for ``view_layout="s2d2p"`` the top view is the (heights, aux)
+        pair)."""
         if score_threshold is None:
             score_threshold = self.cfg.rcnn.score_threshold
         self.model.eval()
@@ -239,6 +246,10 @@ class Trainer(MV3D):
         if cfg.train.remat:
             raise NotImplementedError("train.remat is not ported "
                                       "(ROADMAP A6)")
+        if cfg.pipeline.view_layout != "hwc":
+            raise NotImplementedError(
+                f"view_layout={cfg.pipeline.view_layout!r}: training in the "
+                f"folded view layouts is not ported (ROADMAP A9)")
         super().__init__(cfg, device=device, seed=seed, variables=variables,
                          log_tag=log_tag, checkpoint_dir=checkpoint_dir,
                          log_dir=log_dir)

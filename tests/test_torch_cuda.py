@@ -15,7 +15,8 @@ import torch
 from chip_smoke import make_cloud, small_reference, small_train_reference
 from mv3d_tpu_torch import kitti_config
 from mv3d_tpu_torch.ops import voxelize as tvox
-from mv3d_tpu_torch.ops import voxelize_heights, voxelize_sweep
+from mv3d_tpu_torch.ops import (voxelize_heights, voxelize_padded,
+                                voxelize_sweep)
 
 torch.set_num_threads(2)
 
@@ -50,6 +51,32 @@ def test_sweep_kernel_bit_equals_plain_on_card():
     plain = voxelize_sweep.scatter_top_fused_plain(*args)
     torch.cuda.synchronize()
     assert voxelize_sweep.scatter_top_fused_batched.launches == before + 1
+    for g, p, w in zip(got, plain, want):
+        assert torch.equal(g, p) and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_kernel_bit_equals_plain_on_card(dtype):
+    """The lane-padded sweep kernel (K2) against its plain version at the
+    s2d2p serving shapes (B=2, 65,536 points per frame, n_sc = 400 x 304):
+    bit-equal on the card and to the CPU, heights in f32 and in bf16."""
+    dev = _cuda()
+    pts = torch.from_numpy(make_cloud(np.random.RandomState(0), 2, 65536,
+                                     CFG, tricky=True))
+    _, _, flat, val, refl = tvox._top_prep(pts, CFG, None, s2d="pad")
+    t = CFG.top
+    n_sc = (t.xn // 2) * tvox.folded_pad_width(t.yn)
+    refl = torch.where(flat < n_sc * 128, refl, 0.0)
+    want = voxelize_padded.scatter_top_padded_plain(flat, val, refl, n_sc,
+                                                    t.zn, dtype)
+    args = (flat.to(dev), val.to(dev), refl.to(dev), n_sc, t.zn, dtype)
+    before = voxelize_padded.scatter_top_padded_batched.launches
+    got = voxelize_padded.scatter_top_padded_batched(*args)
+    plain = voxelize_padded.scatter_top_padded_plain(*args)
+    torch.cuda.synchronize()
+    assert voxelize_padded.scatter_top_padded_batched.launches == before + 1
+    assert got[0].dtype == dtype
     for g, p, w in zip(got, plain, want):
         assert torch.equal(g, p) and torch.equal(g.cpu(), w)
 

@@ -41,7 +41,9 @@ def randomize_bn(variables, seed=0):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = walk(v, bn or k.startswith("BatchNorm"))
+                # a BatchNorm by its leaves: flax names the split stem's
+                # "stem_bn", the others "BatchNorm_<i>"
+                out[k] = walk(v, bn or bool({"scale", "mean"} & set(v)))
             elif bn:
                 shape = np.shape(v)
                 out[k] = {"scale": rng.uniform(0.5, 1.5, shape),
@@ -160,7 +162,7 @@ def test_bf16_compute_keeps_batchnorm_f32():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("roi_align_impl", "matmul"), ("upsample_features", True),
+    ("upsample_features", True),
     ("rgb_basenet", "vgg"), ("backbone_block", "basic"),
     ("stem_space_to_depth", False), ("use_siamese_fusion", True),
     ("use_handcraft_fusion", True), ("use_learnable_fusion", True),

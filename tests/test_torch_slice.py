@@ -146,7 +146,8 @@ from mv3d_tpu_torch import config, convert
 from mv3d_tpu_torch.data import host_aux, loader
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
                                 nms, proposal, roi_align, voxelize,
-                                voxelize_heights, voxelize_sweep)
+                                voxelize_heights, voxelize_padded,
+                                voxelize_sweep)
 from mv3d_tpu_torch.models import backbone, mv3d_net, nets
 from mv3d_tpu_torch.train import (augment, checkpoint, losses, targets,
                                   trainer)
@@ -160,6 +161,10 @@ rng = np.random.RandomState(0)
 pts = np.stack([rng.uniform(0, 16, 512), rng.uniform(-6, 6, 512),
                 rng.uniform(-4, 0.8, 512), rng.uniform(0, 1, 512)], -1)
 dets = trainer.MV3D(cfg, device="cpu", seed=0).predict_from_points(
+    pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
+assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
+serve = mv3d_tpu_torch.serving_config(cfg)
+dets = trainer.MV3D(serve, device="cpu", seed=0).predict_from_points(
     pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
 assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
 drive = chip_smoke.SynthDrive(rng, cfg, 2, 3000, cars=(2, 2))
@@ -176,8 +181,9 @@ print("ok")
 
 
 def test_port_never_imports_jax():
-    """Every port module and ``chip_smoke`` import, serve and train on the
-    CPU without loading jax, flax or the JAX package."""
+    """Every port module and ``chip_smoke`` import, serve (the hwc and the
+    s2d2p serving configuration) and train on the CPU without loading jax,
+    flax or the JAX package."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)

@@ -5,7 +5,8 @@ interpret mode, and against the numpy oracle.
 Tolerances: heights, intensity, count and occupancy are bit-exact; density
 within 1 ulp (the two ``log`` implementations may differ in the last
 bit); the front view within atol 5e-5 (sums and ``sqrt`` reassociate).
-The CUDA kernel against its plain version is in tests/test_torch_cuda.py.
+The CUDA kernel against its plain version is in tests/test_torch_cuda.py;
+the folded layouts are in tests/test_torch_folded.py.
 """
 
 import dataclasses
@@ -186,15 +187,6 @@ def test_cpu_tensors_take_the_plain_version(rng):
     with pytest.raises(ValueError):
         voxelize_sweep.scatter_top_fused_kernel(
             flat, torch.ones(1, 8), torch.ones(1, 8), 4, 2)
-
-
-@pytest.mark.parametrize("pipeline", [
-    {"view_layout": "s2d2"}, {"view_layout": "s2d2p"}])
-def test_unported_layouts_raise(pipeline):
-    cfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, **pipeline))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvox.lidar_to_top_batch(torch.zeros(1, 16, 4), to_port_config(cfg))
 
 
 def test_aux_plane_and_didi_raise():
