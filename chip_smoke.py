@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives ``mv3d_tpu_torch`` — never jax — through its three paths at full
+Drives ``mv3d_tpu_torch`` — never jax — through its four paths at full
 KITTI width (top view 800x600x27, rgb 375x1242, 65,536 points per frame,
 30,000 anchors) with random weights from a seed, and holds each of their
 hand-written kernels against its plain PyTorch version:
@@ -17,23 +17,38 @@ hand-written kernels against its plain PyTorch version:
     fed by the port's ``BatchLoader``, whose prefetch thread computes the
     BEV intensity/density plane on the host, so the card voxelizes only
     the heights, through the heights scatter-max kernel
-    (``voxelize_heights``, K3).
+    (``voxelize_heights``, K3);
+  * serving over HTTP: an artifact of the hwc configuration at
+    ``pipeline.voxel_order="pallas-sort"`` written by
+    ``python -m mv3d_tpu_torch.cli.export`` and answered by
+    ``mv3d_tpu_torch.cli.serve.make_server``; each request sorts its
+    points with the stable bitonic sort kernel (``sort_bitonic``, K4)
+    ahead of K1.
 
 Phases:
 
   1. require CUDA; print the card's name and power limit;
-  2. build the three kernels from this checkout's sources (one nvcc each,
+  2. build the four kernels from this checkout's sources (one nvcc each,
      in parallel);
   3. hold each kernel against its plain version at its path's shapes (B=2,
      65,536 points per frame, K2 with f32 and bf16 heights): bit-equal on
-     the card and against the CPU; then, on the card, the s2d2p pair and
-     the s2d2 view equal the folded hwc view bit for bit (K2 against K1)
-     and their unfolded occupancy the hwc occupancy;
-  4. serve three requests (B=2, distinct clouds) in each serving
-     configuration and check that its kernel ran once per request and the
-     other sweep not at all, the outputs' shape and finiteness, the card's
-     top view and occupancy against the CPU's, and a small f32 model on
-     the card against the CPU;
+     the card and against the CPU; K4 also against ``torch.sort(stable=
+     True)`` + gathers, at n = 256, 2,048 and 8,192 on keys with heavy
+     ties, all equal and negative, and K1 on K4's output against K1 on the
+     unsorted points; then, on the card, the s2d2p pair and the s2d2 view
+     equal the folded hwc view bit for bit (K2 against K1) and their
+     unfolded occupancy the hwc occupancy;
+  4. serve three requests (B=2, distinct clouds) in each in-process
+     serving configuration and check that its kernel ran once per request
+     and the other kernels not at all, the outputs' shape and finiteness,
+     the card's top view and occupancy against the CPU's, and a small f32
+     model on the card against the CPU; then export the pallas-sort
+     artifact (B=2) and serve it over HTTP: /healthz, a single-frame, a
+     two-frame and a JSON request and a malformed body (400); K4 and K1
+     ran once per request; the answers are bit-equal to in-process
+     ``ServingModel.predict_batch`` and to the same weights at
+     ``voxel_order="sort"``; a quantized artifact answers one request as
+     its in-process call does;
   5. train at B=2 from an in-memory synthetic drive (raw-size clouds with
      3-8 planted gt cars per frame): 5 steps of ``top_view_rpn``, then 5
      of all subnets; check finite losses, one heights-kernel launch per
@@ -43,10 +58,14 @@ Phases:
      then one small f32 training step on the card against the CPU;
   6. time each kernel against its plain version and the one PyTorch call
      that computes the same function, where there is one (CUDA events), at
-     B=1, 2 and 8; each serving configuration at B=1 and B=8 (closed loop,
-     three windows of SERVE_WINDOW_S seconds after a warm-up window of
-     SERVE_WARMUP_S seconds: per window frames/s and the median and p90
-     latency, then the median and range over the windows); the training
+     B=1, 2 and 8; each in-process serving configuration at B=1 and B=8
+     (closed loop, three windows of SERVE_WINDOW_S seconds after a warm-up
+     window of SERVE_WARMUP_S seconds: per window frames/s and the median
+     and p90 latency, then the median and range over the windows); a B=1
+     artifact over HTTP (the same windows, request latency at the client;
+     a /healthz round trip, the parse of one body and in-process
+     ``ServingModel.predict`` on numpy to split it) beside in-process
+     ``predict_from_points`` at "pallas-sort" and at "sort"; the training
      step at B=2 (three windows of TRAIN_WINDOW_STEPS steps after
      TRAIN_WARMUP_STEPS: ms/step and frames/s, median and range) with its
      peak allocated memory;
@@ -59,14 +78,15 @@ Phases:
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The line before the last is the kernels' JSON record; the last is
-``{"ok": true, "device": {...}}``. Checkpoints and logs of the training
-phase go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the
-checkout and are removed. Run from the repository root:
+``{"ok": true, "device": {...}}``. Checkpoints, serving artifacts and logs
+go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the checkout and
+are removed. Run from the repository root:
 
     python3 chip_smoke.py [--profile DIR]
 
-``make_cloud``, ``SynthDrive``, ``small_reference`` and
-``small_train_reference`` are shared with the port's tests.
+``make_cloud``, ``SynthDrive``, ``small_reference``,
+``small_train_reference``, ``sort_cases``, ``check_sort`` and
+``check_sort_then_sweep`` are shared with the port's tests.
 """
 
 import argparse
@@ -205,19 +225,46 @@ class SynthDrive:
         return self.frames[i]
 
 
-def serve_window(model, batches, seconds: float):
-    """Closed-loop serving for ``seconds``: one request at a time, each
-    waited for, cycling through distinct batches. Returns the requests'
-    latencies in seconds."""
+def closed_loop(call, seconds: float):
+    """Closed-loop serving for ``seconds``: ``call(i)`` for request i, one
+    at a time, each waited for (the card synchronized). Returns the
+    requests' latencies in seconds."""
     import torch
     lat = []
     end = time.perf_counter() + seconds
     while time.perf_counter() < end:
         t0 = time.perf_counter()
-        model.predict_from_points(*batches[len(lat) % len(batches)], THRESH)
+        call(len(lat))
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     return lat
+
+
+def timed_windows(call, label: str, b: int, card: str) -> float:
+    """A warm-up window of SERVE_WARMUP_S seconds, then three closed-loop
+    windows of SERVE_WINDOW_S seconds of ``call``: per window frames/s and
+    the median and p90 latency, then their medians and ranges. Returns
+    the median of the windows' median latencies (s)."""
+    import numpy as np
+    closed_loop(call, SERVE_WARMUP_S)
+    fps, medians, p90s = [], [], []
+    for w in range(3):
+        lat = np.array(closed_loop(call, SERVE_WINDOW_S))
+        fps.append(b * len(lat) / lat.sum())
+        medians.append(float(np.median(lat)))
+        p90s.append(float(np.percentile(lat, 90)))
+        log(f"phase timing: serving {label} B={b} window {w + 1}/3: "
+            f"{len(lat)} requests in {lat.sum():.2f} s, "
+            f"{fps[-1]:.2f} frames/s, latency median "
+            f"{medians[-1] * 1e3:.2f} ms, p90 {p90s[-1] * 1e3:.2f} ms "
+            f"[{card}]")
+    log(f"phase timing: serving {label} B={b}: {np.median(fps):.2f} "
+        f"frames/s, median of 3 windows (range {min(fps):.2f}-"
+        f"{max(fps):.2f}); latency median {np.median(medians) * 1e3:.2f} "
+        f"ms (range {min(medians) * 1e3:.2f}-{max(medians) * 1e3:.2f}), "
+        f"p90 {np.median(p90s) * 1e3:.2f} ms (range "
+        f"{min(p90s) * 1e3:.2f}-{max(p90s) * 1e3:.2f}) [{card}]")
+    return float(np.median(medians))
 
 
 def profile_calls(call, n: int, label: str, median_s: float, out_dir: str,
@@ -359,19 +406,13 @@ def _small_config():
         image_width=96, image_height=64)
 
 
-def small_train_reference(rng, dev, work_dir):
-    """One f32 training step of the RPN stage (the loader's host aux
-    plane, heights on the device) with the same weights, batch and draws
-    on the card and on the CPU: losses, target masks, gradients and the
-    updated parameters must agree.
-
-    Tolerances (those of tests/test_torch_train.py): target masks exact;
-    RPN losses rtol 1e-4; gradients within 1e-3 of each tensor's max |g|;
-    the updated parameters within rtol 2.4e-7 + atol 1e-8 where |g| is
-    above 1e-3 of the tensor's max (there the step's sign is certain).
-    The fusion losses are held to rtol 1e-4, or 1e-2 when an rgb ROI
-    corner moved by a pixel (counted and printed; see small_reference)."""
-    import numpy as np
+def train_step_pair(rng, devices, work_dir, threads=(None, None)):
+    """One f32 training step of the RPN stage on the small config, with
+    the same weights, batch (a 2-frame synthetic drive from ``rng``) and
+    draws on each of ``devices`` (CPU runs with ``threads`` CPU threads
+    where given). Returns one dict per device: losses, target masks, the
+    fusion targets' rgb ROI corners, and top_view_rpn's gradients and
+    updated parameters, all on the CPU."""
     import torch
     from mv3d_tpu_torch.data.loader import frames_to_batch
     from mv3d_tpu_torch.models.mv3d_net import project_to_rgb_roi
@@ -381,7 +422,9 @@ def small_train_reference(rng, dev, work_dir):
     drive = SynthDrive(rng, cfg, 2, 8000, cars=(2, 3))
     batch = frames_to_batch(drive.frames, cfg)
     runs = []
-    for d in (torch.device("cpu"), dev):
+    n_threads = torch.get_num_threads()
+    for d, nt in zip(devices, threads):
+        torch.set_num_threads(nt or n_threads)
         tr = Trainer(None, train_targets=("top_view_rpn",), cfg=cfg,
                      device=d, seed=1, checkpoint_dir=work_dir,
                      log_dir=work_dir)
@@ -396,7 +439,31 @@ def small_train_reference(rng, dev, work_dir):
             rgb=project_to_rgb_roi(fus_tg.rois3d.detach(), cfg).cpu(),
             grads={n: q.grad.cpu() for n, q in named},
             params={n: q.detach().cpu() for n, q in named}))
-    c, g = runs
+    torch.set_num_threads(n_threads)
+    return runs
+
+
+def small_train_reference(rng, dev, work_dir):
+    """One f32 training step of the RPN stage (the loader's host aux
+    plane, heights on the device) with the same weights, batch and draws
+    on the card and on the CPU: losses, target masks, gradients and the
+    updated parameters must agree.
+
+    Tolerances (those of tests/test_torch_train.py): target masks exact;
+    RPN losses rtol 1e-4; gradients within 1e-3 of each tensor's max |g|;
+    the updated parameters within rtol 2.4e-7 + atol 1e-8 where |g| is
+    above 1e-3 of the tensor's max (there the step's sign is certain).
+    The fusion losses are held to rtol 1e-4, or 1e-2 when an rgb ROI
+    corner moved by a pixel (counted and printed; see small_reference).
+
+    The gradients depend on the draw: through the fusion loss, moved rgb
+    corners and ReLU kinks move the trunk's gradients by more than 1e-3
+    of their max on some draws, on the card and between two CPU thread
+    counts alike (``tools/torch_train_reference_draws.py``). So ``main``
+    and the card test pass a ``RandomState(2)`` of their own, not a
+    generator that earlier phases have advanced."""
+    import torch
+    c, g = train_step_pair(rng, (torch.device("cpu"), dev), work_dir)
     for a, b in zip(c["masks"], g["masks"]):
         if not torch.equal(a, b):
             raise AssertionError("small training step: target masks differ "
@@ -556,10 +623,14 @@ def kernel_bounds(b, n_points, n_cells, zn, n_sc):
     (each input read once, each output written once) over the HBM rate;
     the work is a few integer ops per byte, far below the card's peak
     rate, so bytes bound both. K2 at the serving path's bf16 heights
-    (``voxelize_padded``) and with f32 heights (``voxelize_padded_f32``)."""
+    (``voxelize_padded``) and with f32 heights (``voxelize_padded_f32``).
+    K4 (``sort_bitonic``) reads and writes an i32 key and two f32
+    payloads; its network's log2(n)(log2(n)+1)/2 passes (136 at n =
+    65,536) are not in the bound, which no comparison sort can reach."""
     n_flat = n_cells * zn
     sweep_bytes = b * (n_points * 12 + n_flat * 4 + n_cells * 8)
     heights_bytes = b * (n_points * 8 + n_flat * 4)
+    sort_bytes = b * n_points * 12 * 2
 
     def padded_bytes(h_bytes):
         return b * (n_points * 12 + n_sc * 128 * h_bytes + n_sc * 4 * 8)
@@ -567,7 +638,70 @@ def kernel_bounds(b, n_points, n_cells, zn, n_sc):
     return {name: nbytes / HBM_BYTES_PER_S * 1e3 for name, nbytes in (
         ("voxelize_sweep", sweep_bytes), ("voxelize_heights", heights_bytes),
         ("voxelize_padded", padded_bytes(2)),
-        ("voxelize_padded_f32", padded_bytes(4)))}
+        ("voxelize_padded_f32", padded_bytes(4)),
+        ("sort_bitonic", sort_bytes))}
+
+
+def sort_library(key, p1, p2):
+    """K4's function as one PyTorch call: ``torch.sort(stable=True)`` and
+    two gathers (timed beside the kernel; the port never calls it)."""
+    import torch
+    skey, order = torch.sort(key, dim=-1, stable=True)
+    return skey, torch.gather(p1, -1, order), torch.gather(p2, -1, order)
+
+
+def sort_cases(rng, b, n):
+    """K4's hard inputs: (B, n) int32 keys with heavy ties (values in
+    [0, 16)), all equal (stability alone decides the order) and negative
+    (with the int32 extremes), each with two f32 payloads."""
+    import numpy as np
+    neg = rng.randint(-1000, 1000, (b, n))
+    neg[:, :4] = [-2 ** 31, 2 ** 31 - 1, -1, 0]
+    keys = {"ties": rng.randint(0, 16, (b, n)), "equal": np.full((b, n), 7),
+            "negative": neg}
+    return {kind: (k.astype(np.int32), rng.rand(b, n).astype(np.float32),
+                   rng.rand(b, n).astype(np.float32))
+            for kind, k in keys.items()}
+
+
+def check_sort(key, p1, p2, dev, label):
+    """K4 on the card against its plain network on the card and on the
+    CPU and against ``sort_library``: sorted keys and payloads bit-equal.
+    Takes CPU arrays or tensors; returns max |kernel - plain| (0)."""
+    import torch
+    from mv3d_tpu_torch.ops import sort_bitonic as sb
+    cpu = [torch.as_tensor(x) for x in (key, p1, p2)]
+    want = sb.bitonic_sort_plain(*cpu)
+    args = [x.to(dev) for x in cpu]
+    got = sb.bitonic_sort_kernel(*args)
+    plain = sb.bitonic_sort_plain(*args)
+    lib = sort_library(*args)
+    torch.cuda.synchronize()
+    for name, g, p, w, l in zip(("key", "p1", "p2"), got, plain, want, lib):
+        if not (torch.equal(g, p) and torch.equal(g.cpu(), w)
+                and torch.equal(g, l)):
+            raise AssertionError(f"sort kernel {name} differs from its plain "
+                                 f"network or torch.sort ({label})")
+    return max((g.double() - p.double()).abs().max().item()
+               for g, p in zip(got, plain))
+
+
+def check_sort_then_sweep(flat, val, refl, n_cells, zn):
+    """K1 on K4's output equals K1 on the unsorted points, bit for bit
+    (the sort is stable, so equal ``flat`` keep their order and K1's
+    lowest-index tie rule picks the same point)."""
+    import torch
+    from mv3d_tpu_torch.ops import sort_bitonic as sb
+    from mv3d_tpu_torch.ops import voxelize_sweep as sweep
+    ordered = sb.bitonic_sort_kernel(flat, val, refl)
+    got = sweep.scatter_top_fused_kernel(*ordered, n_cells, zn)
+    want = sweep.scatter_top_fused_kernel(flat, val, refl, n_cells, zn)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("heights", "count", "intensity"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"sweep {name} after the sort differs from "
+                                 f"the sweep of the unsorted points")
+    return int((want[1] > 0).sum())
 
 
 def check_padded_kernel(rng, cfg, dev, n_pts):
@@ -701,38 +835,239 @@ def check_top_view_card_vs_cpu(cfg, points, dev):
         f"{dens_err:.3g}, tol {ulp:g})")
 
 
-def serve_timing(model, label, rng, cfg, dev, n_pts, profile_dir, card):
-    """Closed-loop serving windows of ``model`` at B=1 and B=8, then, with
+def serve_timing(model, label, rng, cfg, dev, n_pts, profile_dir, card,
+                 sizes=(1, 8)):
+    """Closed-loop serving windows of ``model.predict_from_points`` at each
+    batch size of ``sizes`` (``timed_windows``), then, with
     ``profile_dir``, a torch.profiler pass of 5 requests each."""
-    import numpy as np
     import torch
-    for b in (1, 8):
+    for b in sizes:
         batches = [(torch.from_numpy(make_cloud(rng, b, n_pts, cfg, False)
                                      ).to(dev),
                     torch.full((b,), n_pts, dtype=torch.int32, device=dev),
                     torch.rand(b, *cfg.rgb_shape, device=dev))
                    for _ in range(4)]
-        serve_window(model, batches, SERVE_WARMUP_S)
-        fps, medians = [], []
-        for w in range(3):
-            lat = np.array(serve_window(model, batches, SERVE_WINDOW_S))
-            fps.append(b * len(lat) / lat.sum())
-            log(f"phase timing: serving {label} B={b} window {w + 1}/3: "
-                f"{len(lat)} requests in {lat.sum():.2f} s, "
-                f"{fps[-1]:.2f} frames/s, latency median "
-                f"{np.median(lat) * 1e3:.2f} ms, p90 "
-                f"{np.percentile(lat, 90) * 1e3:.2f} ms [{card}]")
-            medians.append(np.median(lat))
-        log(f"phase timing: serving {label} B={b}: {np.median(fps):.2f} "
-            f"frames/s, median of 3 windows (range {min(fps):.2f}-"
-            f"{max(fps):.2f}) [{card}]")
+
+        def call(i):
+            model.predict_from_points(*batches[i % len(batches)], THRESH)
+
+        median_s = timed_windows(call, label, b, card)
         if profile_dir:
-            profile_calls(
-                lambda i: model.predict_from_points(
-                    *batches[i % len(batches)], THRESH),
-                5, f"serving {label} B={b}", float(np.median(medians)),
-                profile_dir, card)
+            profile_calls(call, 5, f"serving {label} B={b}", median_s,
+                          profile_dir, card)
         del batches
+
+
+def npz_body(**arrays) -> bytes:
+    """An uncompressed ``.npz`` request body."""
+    import io
+    import numpy as np
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def http_post(port: int, body: bytes, accept=None) -> bytes:
+    """POST ``body`` to the local server's /predict; the response body."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/predict", data=body, method="POST",
+        headers={"Accept": accept} if accept else {})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read()
+
+
+def export_artifact(work_dir: str, name: str, batch_size: int,
+                    quantized: bool = False) -> str:
+    """``python -m mv3d_tpu_torch.cli.export --random-init`` of the hwc
+    serving configuration at ``voxel_order="pallas-sort"`` (KITTI preset,
+    ``use_pallas_fused``; weights from seed 0) into ``work_dir/name``."""
+    from mv3d_tpu_torch.cli import export as cli_export
+    argv = ["--random-init", "--out", os.path.join(work_dir, name),
+            "--checkpoint-dir", work_dir, "--batch-size", str(batch_size),
+            "--score-threshold", str(THRESH),
+            "--set", "pipeline.use_pallas_fused", "True",
+            "--set", "pipeline.voxel_order", "pallas-sort"]
+    return cli_export.main(argv + (["--quantized"] if quantized else []))
+
+
+class LocalServer:
+    """``mv3d_tpu_torch.cli.serve.make_server`` over ``artifact`` on a free
+    local port, served from a thread; stopped on leaving the block."""
+
+    def __init__(self, artifact: str):
+        import threading
+        from mv3d_tpu_torch.cli.serve import make_server
+        self.srv = make_server(artifact, port=0)
+        self.port = self.srv.server_address[1]
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+
+
+def serve_http(rng, cfg, dev, work_dir, counters):
+    """The HTTP path at full KITTI width: export the pallas-sort artifact at
+    B=2 through the CLI and serve it; GET /healthz, POST a single-frame
+    npz, a two-frame npz and a JSON request, and a malformed body (400),
+    with the kernels' counts set to 0 just before and read just after
+    (K4 and K1 once per request, K2 and K3 never). Then the answers must
+    equal in-process ``ServingModel.predict_batch`` and the same weights
+    at ``voxel_order="sort"`` bit for bit, with live detections; and a
+    quantized artifact's answer its in-process call. Returns the counts."""
+    import io
+    import json
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch.serving import ServingModel, load_serving
+    from mv3d_tpu_torch.train.trainer import MV3D
+
+    t0 = time.time()
+    art = export_artifact(work_dir, "artifact_b2", 2)
+    pts = make_cloud(rng, 4, cfg.pipeline.max_points, cfg, tricky=False)
+    rgb = rng.rand(4, *cfg.rgb_shape).astype(np.float32)
+    frames = [[(pts[0], rgb[0])], [(pts[1], rgb[1]), (pts[2], rgb[2])],
+              [(pts[3], rgb[3])]]
+    single = npz_body(points=pts[0], rgb=rgb[0])
+    with LocalServer(art) as server:
+        for fn in counters.values():
+            fn.launches = 0
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/healthz", timeout=60) as r:
+            meta = json.loads(r.read())
+        with np.load(io.BytesIO(http_post(server.port, single))) as z:
+            answers = [[(z["boxes3d"], z["probs"])]]
+        with np.load(io.BytesIO(http_post(server.port, npz_body(
+                points_0=pts[1], rgb_0=rgb[1], points_1=pts[2],
+                rgb_1=rgb[2])))) as z:
+            answers.append([(z[f"boxes3d_{i}"], z[f"probs_{i}"])
+                            for i in range(2)])
+        got = json.loads(http_post(server.port, npz_body(
+            points=pts[3], rgb=rgb[3]), accept="application/json"))
+        answers.append([(np.asarray(got["boxes3d"], np.float32).reshape(
+            -1, 8, 3), np.asarray(got["probs"], np.float32))])
+        try:
+            http_post(server.port, b"not-an-npz")
+            raise AssertionError("malformed body: expected HTTP 400")
+        except urllib.error.HTTPError as e:
+            if e.code != 400 or "error" not in json.loads(e.read()):
+                raise AssertionError(f"malformed body: HTTP {e.code}")
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+    want = {"voxelize_sweep": 3, "voxelize_padded": 0,
+            "voxelize_heights": 0, "sort_bitonic": 3}
+    if counts != want:
+        raise AssertionError(f"HTTP requests: kernel launches {counts}, "
+                             f"expected {want}")
+    if meta["status"] != "ok" or meta["batch_size"] != 2:
+        raise AssertionError(f"healthz: {meta}")
+    served = load_serving(art, device=dev)
+    sort_cfg = dataclasses.replace(served.cfg, pipeline=dataclasses.replace(
+        served.cfg.pipeline, voxel_order="sort"))
+    by_sort = ServingModel(MV3D(sort_cfg, device=dev,
+                                variables=served.model.get_variables()),
+                           served.meta)
+    for ref, what in ((served, "in-process predict_batch"),
+                      (by_sort, "voxel_order='sort'")):
+        for ans, fr in zip(answers, frames):
+            for (gb, gp), (wb, wp) in zip(ans, ref.predict_batch(fr)):
+                if not (np.array_equal(gb, wb) and np.array_equal(gp, wp)):
+                    raise AssertionError(f"HTTP answer differs from {what}")
+    live = [len(p) for ans in answers for _, p in ans]
+    if not sum(live):
+        raise AssertionError("HTTP requests: no live detection")
+    log(f"phase serve-http: artifact (B=2, pallas-sort) exported by the "
+        f"CLI and served over HTTP: healthz ok, a single-frame, a "
+        f"two-frame and a JSON request, a malformed body -> 400; kernel "
+        f"launches {counts}; live detections {live}, bit-equal to "
+        f"in-process predict_batch and to voxel_order='sort' "
+        f"({time.time() - t0:.1f} s)")
+    del served, by_sort
+
+    qart = export_artifact(work_dir, "artifact_q", 1, quantized=True)
+    with LocalServer(qart) as server:
+        with np.load(io.BytesIO(http_post(server.port, single))) as z:
+            qb, qp = z["boxes3d"], z["probs"]
+    wb, wp = load_serving(qart, device=dev).predict(pts[0], rgb[0])
+    if not (np.array_equal(qb, wb) and np.array_equal(qp, wp)):
+        raise AssertionError("quantized artifact: HTTP answer differs from "
+                             "its in-process call")
+    log(f"phase serve-http: quantized artifact (uint16 xyz + uint8 "
+        f"reflectance) answers bit-equal to its in-process call ({len(qp)} "
+        f"live detections; {len(answers[0][0][1])} for the f32 artifact)")
+    return counts
+
+
+def http_timing(rng, cfg, dev, n_pts, work_dir, profile_dir, card):
+    """Latency of a B=1 pallas-sort artifact over HTTP (client clock, npz
+    bodies of 4 distinct frames prepared ahead) and the median of 20
+    ``GET /healthz`` round trips; to split it, the host's parse of one
+    body (``np.load``) and in-process ``ServingModel.predict`` (numpy in
+    and out), on the calling thread and on a new thread per call as the
+    server runs it; beside them in-process ``predict_from_points`` of the
+    same weights on device tensors at "pallas-sort" and at "sort"."""
+    import io
+    import threading
+    import urllib.request
+    import numpy as np
+    from mv3d_tpu_torch.serving import load_serving
+    from mv3d_tpu_torch.train.trainer import MV3D
+    art = export_artifact(work_dir, "artifact_b1", 1)
+    pts = make_cloud(rng, 4, n_pts, cfg, tricky=False)
+    rgb = rng.rand(4, *cfg.rgb_shape).astype(np.float32)
+    bodies = [npz_body(points=p, rgb=r) for p, r in zip(pts, rgb)]
+    with LocalServer(art) as server:
+        timed_windows(lambda i: http_post(server.port, bodies[i % 4]),
+                      "HTTP pallas-sort", 1, card)
+        health = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/healthz",
+                    timeout=60) as r:
+                r.read()
+            health.append(time.perf_counter() - t0)
+    log(f"phase timing: GET /healthz round trip: median "
+        f"{np.median(health) * 1e3:.2f} ms over 20 [{card}]")
+    parse = []
+    for body in bodies * 5:
+        t0 = time.perf_counter()
+        with np.load(io.BytesIO(body)) as z:
+            z["points"], z["rgb"]
+        parse.append(time.perf_counter() - t0)
+    log(f"phase timing: np.load of one {len(bodies[0]) / 1e6:.2f} MB request "
+        f"body: median {np.median(parse) * 1e3:.2f} ms over 20 [{card}]")
+    served = load_serving(art, device=dev)
+    timed_windows(lambda i: served.predict(pts[i % 4], rgb[i % 4]),
+                  "in-process ServingModel.predict pallas-sort", 1, card)
+
+    def in_new_thread(i):
+        # as the server runs each request: on a thread of its own
+        t = threading.Thread(target=served.predict,
+                             args=(pts[i % 4], rgb[i % 4]))
+        t.start()
+        t.join()
+
+    timed_windows(in_new_thread, "in-process ServingModel.predict "
+                  "pallas-sort, a new thread per call", 1, card)
+    model = served.model
+    serve_timing(model, "in-process pallas-sort", rng, cfg, dev, n_pts,
+                 profile_dir, card, sizes=(1,))
+    sort_cfg = dataclasses.replace(model.cfg, pipeline=dataclasses.replace(
+        model.cfg.pipeline, voxel_order="sort"))
+    serve_timing(MV3D(sort_cfg, device=dev,
+                      variables=model.get_variables()),
+                 "in-process sort", rng, cfg, dev, n_pts, None, card,
+                 sizes=(1,))
 
 
 def main(argv=None) -> int:
@@ -752,6 +1087,7 @@ def main(argv=None) -> int:
     import numpy as np
     from mv3d_tpu_torch import kitti_config, serving_config
     from mv3d_tpu_torch.ops import cuda_build
+    from mv3d_tpu_torch.ops import sort_bitonic as sb
     from mv3d_tpu_torch.ops import voxelize as vox
     from mv3d_tpu_torch.ops import voxelize_heights as vh
     from mv3d_tpu_torch.ops import voxelize_padded as vp
@@ -780,15 +1116,16 @@ def main(argv=None) -> int:
         shutil.rmtree(d, ignore_errors=True)
     counters = {"voxelize_sweep": sweep.scatter_top_fused_batched,
                 "voxelize_padded": vp.scatter_top_padded_batched,
-                "voxelize_heights": vh.scatter_max_batched}
+                "voxelize_heights": vh.scatter_max_batched,
+                "sort_bitonic": sb.bitonic_sort_batched}
 
-    # -- 2. build the three kernels, one nvcc each, in parallel -----------
+    # -- 2. build the four kernels, one nvcc each, in parallel ------------
     t0 = time.time()
     cuda_build.build_libraries(cuda_build.SOURCES)
-    for mod in (sweep, vp, vh):
+    for mod in (sweep, vp, vh, sb):
         mod._library()
-    log(f"phase build: voxelize_sweep, voxelize_padded and voxelize_heights "
-        f"built in {time.time() - t0:.2f} s")
+    log(f"phase build: voxelize_sweep, voxelize_padded, voxelize_heights "
+        f"and sort_bitonic built in {time.time() - t0:.2f} s")
 
     # -- 3. each kernel against its plain version -------------------------
     def prep(b, device, s2d=False):
@@ -841,6 +1178,20 @@ def main(argv=None) -> int:
         f"n_flat={n_flat} bit-equal to the plain version on the card and "
         f"on the CPU, and to one scatter_reduce_ call (nonzero "
         f"{int((want_h > 0).sum())})")
+    sort_err = check_sort(flat, val, refl, dev, f"path inputs B=2 "
+                          f"N={n_pts}")
+    occupied = check_sort_then_sweep(*args)
+    log(f"phase kernel-vs-plain: sort_bitonic B=2 N={n_pts} (the path's "
+        f"flat/val/refl): keys and payloads bit-equal to the plain network "
+        f"on the card and on the CPU and to torch.sort(stable=True) + "
+        f"gathers; K1 on the sorted points equals K1 on the unsorted ones "
+        f"bit for bit ({occupied} occupied cells)")
+    for n in (256, 2048, 8192):
+        for kind, case in sort_cases(rng, 2, n).items():
+            sort_err = max(sort_err, check_sort(*case, dev, f"{kind} n={n}"))
+    log("phase kernel-vs-plain: sort_bitonic B=2 at n = 256, 2048, 8192 on "
+        "keys with heavy ties, all equal and negative: bit-equal to the "
+        "plain network on the card and on the CPU and to torch.sort")
     pflat, pval, prefl = prep(2, dev, s2d="pad")
     bf16 = torch.bfloat16
     timed = {"voxelize_sweep": (
@@ -856,7 +1207,11 @@ def main(argv=None) -> int:
              "voxelize_heights": (
                  cuda_ms(lambda: vh.scatter_max_kernel(*hargs)),
                  cuda_ms(lambda: vh.scatter_max_plain(*hargs)),
-                 cuda_ms(heights_library))}
+                 cuda_ms(heights_library)),
+             "sort_bitonic": (
+                 cuda_ms(lambda: sb.bitonic_sort_kernel(*args[:3])),
+                 cuda_ms(lambda: sb.bitonic_sort_plain(*args[:3]), 20),
+                 cuda_ms(lambda: sort_library(*args[:3])))}
     padded_f32 = (cuda_ms(lambda: vp.scatter_top_padded_kernel(
                       pflat, pval, prefl, n_sc, zn)),
                   cuda_ms(lambda: vp.scatter_top_padded_plain(
@@ -873,21 +1228,24 @@ def main(argv=None) -> int:
     serve_launches = serve_requests(
         model, requests, counters,
         {"voxelize_sweep": 3, "voxelize_padded": 0,
-         "voxelize_heights": 0})["voxelize_sweep"]
+         "voxelize_heights": 0, "sort_bitonic": 0})["voxelize_sweep"]
     check_top_view_card_vs_cpu(serve_cfg, requests[0][0], dev)
     small_reference(rng, dev)
     pad_model = MV3D(pad_cfg, device=dev, seed=0)
     padded_launches = serve_requests(
         pad_model, requests, counters,
         {"voxelize_sweep": 0, "voxelize_padded": 3,
-         "voxelize_heights": 0})["voxelize_padded"]
+         "voxelize_heights": 0, "sort_bitonic": 0})["voxelize_padded"]
     check_top_view_card_vs_cpu(pad_cfg, requests[0][0], dev)
     small_reference(rng, dev, serving=True)
+    http_launches = serve_http(rng, serve_cfg, dev, work_dirs[0],
+                               counters)["sort_bitonic"]
 
     # -- 5. train at full width, then a small step against the CPU -------
     trainer, loader, train_launches = train_phase(
         train_cfg, dev, rng, work_dirs[0], card)
-    small_train_reference(rng, dev, os.path.join(work_dirs[0], "small"))
+    small_train_reference(np.random.RandomState(2), dev,
+                          os.path.join(work_dirs[0], "small"))
 
     # -- 6. timings --------------------------------------------------------
     bounds = {b: kernel_bounds(b, n_pts, n_cells, zn, n_sc)
@@ -932,9 +1290,20 @@ def main(argv=None) -> int:
             f"{k2 * 1e3:.1f} us, plain {p2 * 1e3:.1f} us, bound "
             f"{bounds[b]['voxelize_padded'] * 1e3:.1f} us [{card}]")
         del f, v, r
+        f, v, r = prep(b, dev)
+        k4, p4, l4 = (cuda_ms(lambda: sb.bitonic_sort_kernel(f, v, r)),
+                      cuda_ms(lambda: sb.bitonic_sort_plain(f, v, r), 20),
+                      cuda_ms(lambda: sort_library(f, v, r)))
+        log(f"phase timing: sort_bitonic B={b}: kernel {k4 * 1e3:.1f} us, "
+            f"plain {p4 * 1e3:.1f} us, torch.sort + gathers "
+            f"{l4 * 1e3:.1f} us, bound "
+            f"{bounds[b]['sort_bitonic'] * 1e3:.1f} us [{card}]")
+        del f, v, r
     for label, m in (("hwc", model), ("s2d2p", pad_model)):
         serve_timing(m, label, rng, cfg, dev, n_pts, opts.profile, card)
     del model, pad_model
+    http_timing(rng, serve_cfg, dev, n_pts, work_dirs[0], opts.profile,
+                card)
 
     for _ in range(TRAIN_WARMUP_STEPS):
         trainer.fit_iteration(loader.load())
@@ -974,7 +1343,11 @@ def main(argv=None) -> int:
               "voxelize_heights": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:46",
-                  launches=train_launches, max_abs_err=heights_err)}
+                  launches=train_launches, max_abs_err=heights_err),
+              "sort_bitonic": dict(
+                  source="mv3d_tpu_torch/csrc/sort_bitonic.cu",
+                  replaces="mv3d_tpu/ops/sort_pallas.py:73",
+                  launches=http_launches, max_abs_err=sort_err)}
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", **rec, ms=timed[name][0],

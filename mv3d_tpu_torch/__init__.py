@@ -1,14 +1,17 @@
 """mv3d_tpu_torch — MV3D in PyTorch, with hand-written CUDA kernels for
-NVIDIA Hopper (sm_90a): lidar -> 3D-boxes inference and staged training.
+NVIDIA Hopper (sm_90a): lidar -> 3D-boxes inference, serving over HTTP and
+staged training.
 
 A port of :mod:`mv3d_tpu` (the JAX/TPU package, which stays the reference).
 Module names mirror it: ``config.py`` (its own copy of the config tree),
-``ops/`` (voxelizer and its three kernels, anchors, boxes, NMS, proposals,
-ROI-align, detection decode), ``models/`` (trunks, subnets, ``MV3DNet``
-with its training forward), ``data/`` (host aux planes, batch loader),
-``train/`` (targets, losses, augmentation, checkpoints, the ``MV3D`` and
-``Trainer`` API) and ``convert.py`` (flax variables <-> ``state_dict``).
-It imports torch and numpy, and nothing of ``mv3d_tpu``, jax or flax.
+``ops/`` (voxelizer and its four kernels, the quantized point transfer,
+anchors, boxes, NMS, proposals, ROI-align, detection decode), ``models/``
+(trunks, subnets, ``MV3DNet`` with its training forward), ``data/`` (host
+aux planes, batch loader), ``train/`` (targets, losses, augmentation,
+checkpoints, the ``MV3D``, ``Predictor`` and ``Trainer`` API),
+``serving/`` (artifact export and load), ``cli/`` (``export`` and
+``serve``) and ``convert.py`` (flax variables <-> ``state_dict``). It
+imports torch and numpy, and nothing of ``mv3d_tpu``, jax or flax.
 """
 
 from .config import Config, kitti_config, serving_config  # noqa: F401

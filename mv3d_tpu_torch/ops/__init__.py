@@ -1,3 +1,3 @@
-"""Compute ops of the port: voxelizer and its two kernels (fused sweep,
-heights scatter-max), anchors, boxes, NMS, proposals, ROI-align, detection
-decode."""
+"""Compute ops of the port: voxelizer and its four kernels (fused sweep,
+lane-padded sweep, heights scatter-max, bitonic sort), the quantized point
+transfer, anchors, boxes, NMS, proposals, ROI-align, detection decode."""

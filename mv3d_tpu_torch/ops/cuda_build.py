@@ -23,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = tuple(os.path.join(CSRC, f) for f in (
-    "voxelize_sweep.cu", "voxelize_padded.cu", "voxelize_heights.cu"))
+    "voxelize_sweep.cu", "voxelize_padded.cu", "voxelize_heights.cu",
+    "sort_bitonic.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 

@@ -23,11 +23,23 @@ The top view comes in the three layouts of ``pipeline.view_layout``:
 The folded layouts return the folded (B, Xn/2, W, 4) occupancy
 (:func:`unfold_occ4` relays it out) and take no host aux plane. In the JAX
 package the ``pipeline`` options ``use_pallas_fused``,
-``use_pallas_heights``, ``voxel_order`` and ``sweep_kernel`` only choose a
-TPU formulation (XLA scatters, a sorted Pallas sweep, its loop body, how
-points are grouped) of these functions, so the port computes each through
-its one kernel whatever they say. Non-KITTI datasets raise
-``NotImplementedError`` (ROADMAP A1).
+``use_pallas_heights`` and ``sweep_kernel`` only choose a TPU formulation
+(XLA scatters, a sorted Pallas sweep, its loop body) of these functions,
+so the port computes each through its one kernel whatever they say.
+``voxel_order`` chooses how the TPU sweep's points are put in order; the
+port's sweeps use order-independent atomics and need none, so it follows
+the JAX routing only where that reaches a TPU kernel: on the ``"hwc"`` and
+``"s2d2"`` branches without a host aux plane and with
+``use_pallas_fused``, ``"pallas-sort"`` and ``"bitonic"`` sort each
+frame's (flat, val, refl) by ``flat``, stably, through the bitonic sort
+(:mod:`mv3d_tpu_torch.ops.sort_bitonic`, K4; its plain network on the
+CPU) ahead of K1 when N is a power of two (``"pallas-sort"`` raises below
+256 points, as the TPU kernel asserts). Otherwise nothing is sorted: N
+not a power of two, where JAX takes ``lax.sort``, ``"sort"`` and
+``"bin"``, and without ``use_pallas_fused``, where JAX scatters with XLA.
+A stable sort keeps equal ``flat`` in their order, so the view is
+bit-equal to the unsorted one.
+Non-KITTI datasets raise ``NotImplementedError`` (ROADMAP A1).
 
 Quantization divides by a 0-dim tensor on the points' device, never by a
 Python float: PyTorch's CUDA division by a CPU scalar multiplies by its
@@ -45,11 +57,13 @@ import torch.nn.functional as F
 
 from ..config import Config, cfg as _default_cfg
 
+from .sort_bitonic import bitonic_sort_batched
 from .voxelize_heights import scatter_max_batched
 from .voxelize_padded import LANES, scatter_top_padded_batched
 from .voxelize_sweep import scatter_top_fused_batched
 
 VIEW_LAYOUTS = ("hwc", "s2d2", "s2d2p")
+VOXEL_ORDERS = ("sort", "bin", "pallas-sort", "bitonic")
 
 
 def f32c(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -69,6 +83,26 @@ def check_view_layout(cfg: Config) -> None:
     if cfg.pipeline.view_layout not in VIEW_LAYOUTS:
         raise ValueError(f"view_layout={cfg.pipeline.view_layout!r}: "
                          f"expected one of {VIEW_LAYOUTS}")
+
+
+def order_points(flat: torch.Tensor, val: torch.Tensor, refl: torch.Tensor,
+                 cfg: Config):
+    """The sweep's (B, N) inputs in ``pipeline.voxel_order``: sorted by
+    ``flat``, stably, for ``"pallas-sort"``/``"bitonic"`` at a power-of-two
+    N with ``use_pallas_fused``; as they are otherwise (see the module
+    note)."""
+    order = cfg.pipeline.voxel_order
+    if order not in VOXEL_ORDERS:
+        raise ValueError(f"voxel_order={order!r}: expected one of "
+                         f"{VOXEL_ORDERS}")
+    n = flat.shape[-1]
+    if (order not in ("pallas-sort", "bitonic")
+            or not cfg.pipeline.use_pallas_fused or n < 1 or n & (n - 1)):
+        return flat, val, refl
+    if order == "pallas-sort" and n < 256:
+        raise ValueError(f"voxel_order='pallas-sort' sorts at least 256 "
+                         f"points per frame, got {n}")
+    return bitonic_sort_batched(flat, val, refl)
 
 
 def folded_pad_width(yn: int) -> int:
@@ -250,8 +284,10 @@ def lidar_to_top_batch(points: torch.Tensor, cfg: Config = _default_cfg,
         top = torch.cat([heights.reshape(bsz, xn, yn, zn),
                          aux.to(heights.device, torch.float32)], dim=-1)
         return (top, _sum_in_order(top)) if return_occ else top
+    flat, val, refl = order_points(
+        flat, val, torch.where(flat < n_cells * zn, refl, 0.0), cfg)
     heights, counts, intensity = scatter_top_fused_batched(
-        flat, val, torch.where(flat < n_cells * zn, refl, 0.0), n_cells, zn)
+        flat, val, refl, n_cells, zn)
     density = _density(counts)
     view_dtype = getattr(torch, cfg.pipeline.top_view_dtype)
     heights2d = heights.reshape(bsz, n_cells, zn).to(view_dtype)

@@ -1,7 +1,8 @@
-"""User-facing API: ``MV3D`` (inference, weights) and ``Trainer`` (staged
-training).
+"""User-facing API: ``MV3D`` (inference, weights), ``Predictor`` (an
+``MV3D`` that loads its checkpoints) and ``Trainer`` (staged training).
 
-Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D`` and ``Trainer``:
+Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor`` and
+``Trainer``:
 
   * ``MV3D.predict`` (views in; the ``s2d2p`` layout's view is the
     (heights, aux) pair) and ``predict_from_points`` (raw padded lidar
@@ -220,6 +221,17 @@ class MV3D:
         dets, _ = self.model.forward_inference(
             top, rgb, front, score_threshold=score_threshold, top_occ=occ)
         return dets
+
+
+class Predictor(MV3D):
+    """Inference-ready model: loads every subnet checkpoint of its tag on
+    construction (subnets without one keep their initialization)."""
+
+    def __init__(self, cfg: Config = _default_cfg, log_tag: str = "default",
+                 checkpoint_dir: str = "checkpoint", **kw):
+        super().__init__(cfg, log_tag=log_tag, checkpoint_dir=checkpoint_dir,
+                         **kw)
+        self.load_weights()
 
 
 class Trainer(MV3D):

@@ -12,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_cloud, small_reference, small_train_reference
+from chip_smoke import (check_sort, check_sort_then_sweep, make_cloud,
+                        serve_http, small_reference, small_train_reference,
+                        sort_cases)
 from mv3d_tpu_torch import kitti_config
 from mv3d_tpu_torch.ops import voxelize as tvox
-from mv3d_tpu_torch.ops import (voxelize_heights, voxelize_padded,
-                                voxelize_sweep)
+from mv3d_tpu_torch.ops import (sort_bitonic, voxelize_heights,
+                                voxelize_padded, voxelize_sweep)
 
 torch.set_num_threads(2)
 
@@ -117,3 +119,49 @@ def test_training_step_card_matches_cpu(tmp_path):
     """One small f32 RPN-stage training step on the card and on the CPU,
     within the tolerances ``chip_smoke.small_train_reference`` states."""
     small_train_reference(np.random.RandomState(2), _cuda(), str(tmp_path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 2048, 8192])
+def test_sort_kernel_bit_equals_plain_and_torch_sort_on_card(n):
+    """The bitonic sort kernel (K4) on keys with heavy ties, all equal and
+    negative (B=2): keys and payloads bit-equal to its plain network on
+    the card and on the CPU and to ``torch.sort(stable=True)`` + gathers
+    (``chip_smoke.check_sort``)."""
+    dev = _cuda()
+    for kind, case in sort_cases(np.random.RandomState(n), 2, n).items():
+        assert check_sort(*case, dev, f"{kind} n={n}") == 0
+
+
+@pytest.mark.cuda
+def test_sort_kernel_on_the_serving_path_inputs():
+    """K4 at the pallas-sort serving path's inputs (B=2, 65,536 tricky
+    points per frame): bit-equal as above, one launch per call; K1 on its
+    output equals K1 on the unsorted points, bit for bit."""
+    dev = _cuda()
+    pts = torch.from_numpy(make_cloud(np.random.RandomState(3), 2, 65536,
+                                     CFG, tricky=True))
+    _, _, flat, val, refl = tvox._top_prep(pts, CFG, None)
+    t = CFG.top
+    n_cells = t.xn * t.yn
+    refl = torch.where(flat < n_cells * t.zn, refl, 0.0)
+    before = sort_bitonic.bitonic_sort_batched.launches
+    assert check_sort(flat, val, refl, dev, "serving path") == 0
+    assert sort_bitonic.bitonic_sort_batched.launches == before + 1
+    assert check_sort_then_sweep(flat.to(dev), val.to(dev), refl.to(dev),
+                                 n_cells, t.zn) > 0
+
+
+@pytest.mark.cuda
+def test_http_serving_at_pallas_sort_on_card(tmp_path):
+    """The CLI-exported pallas-sort artifact over HTTP at full KITTI width
+    (``chip_smoke.serve_http``): K4 and K1 once per request, answers
+    bit-equal to in-process calls and to ``voxel_order="sort"``."""
+    dev = _cuda()
+    counters = {"voxelize_sweep": voxelize_sweep.scatter_top_fused_batched,
+                "voxelize_padded": voxelize_padded.scatter_top_padded_batched,
+                "voxelize_heights": voxelize_heights.scatter_max_batched,
+                "sort_bitonic": sort_bitonic.bitonic_sort_batched}
+    counts = serve_http(np.random.RandomState(4), CFG, dev, str(tmp_path),
+                        counters)
+    assert counts["sort_bitonic"] == counts["voxelize_sweep"] == 3

@@ -138,16 +138,18 @@ def test_predict_from_points_with_host_aux(both):
 
 
 _NO_JAX = r"""
-import dataclasses, sys, tempfile
+import dataclasses, io, sys, tempfile, threading, urllib.request
 import numpy as np
 import chip_smoke
 import mv3d_tpu_torch
-from mv3d_tpu_torch import config, convert
+from mv3d_tpu_torch import config, convert, serving
+from mv3d_tpu_torch.cli import common, export as cli_export
+from mv3d_tpu_torch.cli import serve as cli_serve
 from mv3d_tpu_torch.data import host_aux, loader
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
-                                nms, proposal, roi_align, voxelize,
-                                voxelize_heights, voxelize_padded,
-                                voxelize_sweep)
+                                nms, proposal, quantize, roi_align, sort,
+                                sort_bitonic, voxelize, voxelize_heights,
+                                voxelize_padded, voxelize_sweep)
 from mv3d_tpu_torch.models import backbone, mv3d_net, nets
 from mv3d_tpu_torch.train import (augment, checkpoint, losses, targets,
                                   trainer)
@@ -173,6 +175,24 @@ with loader.BatchLoader(drive, cfg, batch_size=2) as data:
     tr = trainer.Trainer(data, cfg=cfg, device="cpu",
                          checkpoint_dir=d + "/ckpt", log_dir=d + "/log")
     assert np.isfinite(list(tr.fit_iteration(data.load()).values())).all()
+served = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+    cfg.pipeline, use_pallas_fused=True, voxel_order="pallas-sort"))
+art = serving.export_serving(
+    trainer.MV3D(served, device="cpu", seed=0).get_variables(), served,
+    d + "/art", batch_size=2)
+srv = cli_serve.make_server(art, port=0, device="cpu")
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+buf = io.BytesIO()
+np.savez(buf, points=pts.astype(np.float32),
+         rgb=rng.rand(64, 96, 3).astype(np.float32))
+req = urllib.request.Request(
+    f"http://127.0.0.1:{srv.server_address[1]}/predict",
+    data=buf.getvalue(), method="POST")
+with urllib.request.urlopen(req, timeout=120) as r:
+    with np.load(io.BytesIO(r.read())) as z:
+        assert z["boxes3d"].shape[1:] == (8, 3)
+srv.shutdown()
+srv.server_close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "mv3d_tpu"))
 assert not bad, bad
@@ -181,9 +201,10 @@ print("ok")
 
 
 def test_port_never_imports_jax():
-    """Every port module and ``chip_smoke`` import, serve (the hwc and the
-    s2d2p serving configuration) and train on the CPU without loading jax,
-    flax or the JAX package."""
+    """Every port module, its CLI and ``chip_smoke`` import, predict (the
+    hwc and the s2d2p serving configuration), train, and export an
+    artifact that answers one HTTP /predict request, on the CPU, without
+    loading jax, flax or the JAX package."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)

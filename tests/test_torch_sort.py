@@ -1,0 +1,198 @@
+"""Port parity of the stable bitonic sort (K4) and of the voxelizer's
+``voxel_order`` routing.
+
+The plain network (``mv3d_tpu_torch/ops/sort.py``, what the K4 wrapper runs
+on CPU tensors) against the JAX Pallas kernel it replaces
+(``bitonic_sort_pallas`` in interpret mode), the JAX pure-jnp network and
+numpy's stable argsort; then the port's voxelizer at
+``voxel_order="pallas-sort"``/``"bitonic"`` against JAX's eager
+``lidar_to_top_batch`` at ``"pallas-sort"`` (K4, then the fused sweep, both
+in interpret mode). A sort only moves values, so every comparison is
+bit-exact; the density channel is held to 1 ulp as in
+tests/test_torch_voxelize.py. The CUDA kernel against the plain network
+is in tests/test_torch_cuda.py.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from mv3d_tpu.config import kitti_config
+from mv3d_tpu.ops import sort as jsort
+from mv3d_tpu.ops import voxelize as jvox
+from mv3d_tpu.ops.sort_pallas import bitonic_sort_pallas
+from mv3d_tpu_torch.ops import sort_bitonic
+from mv3d_tpu_torch.ops import voxelize as tvox
+from mv3d_tpu_torch.ops.sort import bitonic_sort_stable
+
+from test_torch_config import to_port_config
+
+torch.set_num_threads(2)
+
+KINDS = ("ties", "equal", "negative")
+SIZES = (256, 8192)
+
+CFG = kitti_config()
+SMALL = dataclasses.replace(
+    CFG, top=dataclasses.replace(CFG.top, x_max=8.0, y_min=-3.0, y_max=3.0),
+    pipeline=dataclasses.replace(CFG.pipeline, use_pallas_fused=True))
+
+
+def sort_inputs(n, seed=0):
+    """(3, n) int32 keys, one row per kind: heavy ties (values in [0, 16)),
+    all equal (stability alone decides), negative keys including the int32
+    extremes; and two f32 payload rows each."""
+    rng = np.random.RandomState(seed)
+    neg = rng.randint(-1000, 1000, n)
+    neg[:4] = [-2 ** 31, 2 ** 31 - 1, -1, 0]
+    keys = np.stack([rng.randint(0, 16, n), np.full(n, 7), neg]
+                    ).astype(np.int32)
+    return keys, rng.rand(3, n).astype(np.float32), \
+        rng.rand(3, n).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def sorted_rows():
+    """Per size: the inputs, JAX K4 (interpret mode) and the JAX jnp
+    network, each over the three rows at once."""
+    out = {}
+    for n in SIZES:
+        keys, p1, p2 = sort_inputs(n)
+        pallas = jax.vmap(lambda k, a, b: bitonic_sort_pallas(
+            k, (a, b), interpret=True))(keys, p1, p2)
+        jnp_net = jax.jit(jax.vmap(lambda k, a, b: jsort.bitonic_sort_stable(
+            k, (a, b))))(keys, p1, p2)
+        out[n] = ((keys, p1, p2), [np.asarray(x) for x in pallas],
+                  [np.asarray(x) for x in jnp_net])
+    return out
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", SIZES)
+def test_plain_network_matches_jax_sorts(sorted_rows, n, kind):
+    (keys, p1, p2), pallas, jnp_net = sorted_rows[n]
+    row = KINDS.index(kind)
+    got = sort_bitonic.bitonic_sort_batched(
+        *(torch.from_numpy(a[row:row + 1]) for a in (keys, p1, p2)))
+    order = np.argsort(keys[row], kind="stable")
+    for g, pa, jn, src in zip(got, pallas, jnp_net, (keys, p1, p2)):
+        g = g[0].numpy()
+        np.testing.assert_array_equal(g, pa[row])
+        np.testing.assert_array_equal(g, jn[row])
+        np.testing.assert_array_equal(g, src[row][order])
+
+
+def test_plain_network_sorts_every_row_of_a_batch():
+    """Rows are sorted independently, leading dims of any rank."""
+    keys, p1, _ = sort_inputs(512, seed=1)
+    k, p = bitonic_sort_stable(torch.from_numpy(keys).reshape(3, 1, 512),
+                               (torch.from_numpy(p1).reshape(3, 1, 512),))
+    order = np.argsort(keys, axis=1, kind="stable")
+    np.testing.assert_array_equal(k.reshape(3, 512).numpy(),
+                                  np.take_along_axis(keys, order, 1))
+    np.testing.assert_array_equal(p.reshape(3, 512).numpy(),
+                                  np.take_along_axis(p1, order, 1))
+
+
+def test_cpu_tensors_take_the_plain_network():
+    keys, p1, p2 = (torch.from_numpy(a[:1, :256]) for a in sort_inputs(256))
+    before = sort_bitonic.bitonic_sort_batched.launches
+    got = sort_bitonic.bitonic_sort_batched(keys, p1, p2)
+    assert sort_bitonic.bitonic_sort_batched.launches == before
+    want = bitonic_sort_stable(keys, (p1, p2))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="CUDA"):
+        sort_bitonic.bitonic_sort_kernel(keys, p1, p2)
+    with pytest.raises(ValueError, match="power-of-two"):
+        sort_bitonic.bitonic_sort_batched(keys[:, :200], p1[:, :200],
+                                          p2[:, :200])
+
+
+def _with(cfg, **pipeline):
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, **pipeline))
+
+
+@pytest.fixture(scope="module")
+def tricky_batch():
+    """Two tricky clouds of 8,192 points (boundary z values, duplicated
+    positions with other reflectance, points around the crop box), the
+    second one padded after 6,000 points."""
+    pts = chip_smoke.make_cloud(np.random.RandomState(11), 2, 8192, SMALL,
+                                tricky=True)
+    pts[1, 6000:] = -1e9
+    return pts, np.array([8192, 6000], np.int32)
+
+
+@pytest.mark.parametrize("layout", ["hwc", "s2d2"])
+def test_voxelizer_pallas_sort_matches_jax(tricky_batch, layout):
+    """The port at "pallas-sort" and "bitonic" against JAX's eager view at
+    "pallas-sort" (K4 + the sorted sweep, interpret mode) and the port at
+    "sort": views and occupancies bit-equal (density within 1 ulp of
+    JAX's); the port's own views bit-equal outright."""
+    pts, num = tricky_batch
+    jcfg = _with(SMALL, view_layout=layout, voxel_order="pallas-sort")
+    jtop, jocc = (np.asarray(x) for x in jvox.lidar_to_top_batch(
+        pts, jcfg, num, return_occ=True))
+    p, n = torch.from_numpy(pts), torch.from_numpy(num)
+    views = {order: tvox.lidar_to_top_batch(
+        p, to_port_config(_with(jcfg, voxel_order=order)), n,
+        return_occ=True) for order in ("pallas-sort", "bitonic", "sort")}
+    dens = (np.s_[..., SMALL.top.zn + 1] if layout == "hwc"
+            else np.s_[..., -4:])
+    rest = (np.s_[..., :SMALL.top.zn + 1] if layout == "hwc"
+            else np.s_[..., :-4])
+    for top, occ in views.values():
+        np.testing.assert_array_equal(top.numpy()[rest], jtop[rest])
+        np.testing.assert_array_max_ulp(top.numpy()[dens], jtop[dens],
+                                        maxulp=1)
+        np.testing.assert_array_equal(occ.numpy(), jocc)
+        assert torch.equal(top, views["sort"][0])
+        assert torch.equal(occ, views["sort"][1])
+    assert (jocc > 0).sum() > 100
+
+
+def test_voxel_order_routes_the_sort(tricky_batch, monkeypatch):
+    """Which orders and sizes sort: "pallas-sort"/"bitonic" at a
+    power-of-two N, once per batch; nothing at other N (where JAX takes
+    lax.sort), for "sort"/"bin", on the s2d2p branch, without
+    use_pallas_fused (where JAX scatters with XLA) or with a host aux
+    plane; "pallas-sort" below 256 points raises, "bitonic" sorts."""
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return sort_bitonic.bitonic_sort_plain(*args)
+
+    monkeypatch.setattr(tvox, "bitonic_sort_batched", spy)
+    pts, num = tricky_batch
+    p = torch.from_numpy(pts)
+
+    def run(n_pts, **kw):
+        calls.clear()
+        tvox.lidar_to_top_batch(p[:, :n_pts], to_port_config(
+            _with(SMALL, **kw)))
+        return list(calls)
+
+    assert run(8192, voxel_order="pallas-sort") == [(2, 8192)]
+    assert run(8192, voxel_order="bitonic", view_layout="s2d2") == [(2, 8192)]
+    assert run(128, voxel_order="bitonic") == [(2, 128)]
+    assert run(6000, voxel_order="pallas-sort") == []
+    assert run(8192, voxel_order="sort") == []
+    assert run(8192, voxel_order="bin") == []
+    assert run(8192, voxel_order="pallas-sort", view_layout="s2d2p") == []
+    assert run(8192, voxel_order="pallas-sort", use_pallas_fused=False) == []
+    calls.clear()
+    t = SMALL.top
+    tvox.lidar_to_top_batch(p, to_port_config(_with(
+        SMALL, voxel_order="pallas-sort")),
+        aux=torch.zeros(2, t.xn, t.yn, 2))
+    assert calls == []
+    with pytest.raises(ValueError, match="256"):
+        run(128, voxel_order="pallas-sort")
+    with pytest.raises(ValueError, match="voxel_order"):
+        run(8192, voxel_order="radix")
