@@ -12,7 +12,8 @@ hand-written kernels against its plain PyTorch version:
     configuration (``bench.py``: lane-padded folded view ``s2d2p`` in
     bf16, split conv stem, matmul ROI-align;
     ``mv3d_tpu_torch.serving_config``),
-    through the lane-padded sweep kernel (``voxelize_padded``, K2);
+    through the lane-padded sweep kernel (``voxelize_padded``, K2: points
+    binned by output tile, each tile swept in shared memory);
   * training: the staged ``Trainer`` (bf16 compute, f32 master weights)
     fed by the port's ``BatchLoader``, whose prefetch thread computes the
     BEV intensity/density plane on the host, so the card voxelizes only
@@ -22,20 +23,26 @@ hand-written kernels against its plain PyTorch version:
     ``pipeline.voxel_order="pallas-sort"`` written by
     ``python -m mv3d_tpu_torch.cli.export`` and answered by
     ``mv3d_tpu_torch.cli.serve.make_server``; each request sorts its
-    points with the stable bitonic sort kernel (``sort_bitonic``, K4)
-    ahead of K1.
+    points with the stable sort kernel (``sort_radix``, K4: a radix sort,
+    one thread-block cluster per frame, one launch) ahead of K1; the same
+    configuration in process on uncropped sweeps of 131,072 points, longer
+    than a cluster holds, sorts them with the bitonic network kernel
+    (``sort_bitonic``), which the sort's wrapper picks by row length.
 
 Phases:
 
   1. require CUDA; print the card's name and power limit;
-  2. build the four kernels from this checkout's sources (one nvcc each,
-     in parallel);
+  2. build the five kernels from this checkout's sources (one nvcc each,
+     in parallel); print ptxas's registers, spills and shared memory of
+     the K2 and K4 kernels;
   3. hold each kernel against its plain version at its path's shapes (B=2,
      65,536 points per frame, K2 with f32 and bf16 heights): bit-equal on
-     the card and against the CPU; K4 also against ``torch.sort(stable=
-     True)`` + gathers, at n = 256, 2,048 and 8,192 on keys with heavy
-     ties, all equal and negative, and K1 on K4's output against K1 on the
-     unsorted points; then, on the card, the s2d2p pair and the s2d2 view
+     the card and against the CPU; K2 also on skewed clouds (all points in
+     one tile, all in one cell, in the last partial tile, in pad lanes);
+     K4 also against ``torch.sort(stable=True)`` + gathers, at n = 256,
+     2,048, 8,192, 65,536 (radix) and 131,072 (bitonic) on keys that need
+     0 to 4 digit passes, and K1 on K4's output against K1 on the unsorted
+     points; then, on the card, the s2d2p pair and the s2d2 view
      equal the folded hwc view bit for bit (K2 against K1) and their
      unfolded occupancy the hwc occupancy;
   4. serve three requests (B=2, distinct clouds) in each in-process
@@ -48,7 +55,8 @@ Phases:
      ran once per request; the answers are bit-equal to in-process
      ``ServingModel.predict_batch`` and to the same weights at
      ``voxel_order="sort"``; a quantized artifact answers one request as
-     its in-process call does;
+     its in-process call does; two in-process requests of 131,072 points
+     per frame at "pallas-sort" run the bitonic kernel and K1 once each;
   5. train at B=2 from an in-memory synthetic drive (raw-size clouds with
      3-8 planted gt cars per frame): 5 steps of ``top_view_rpn``, then 5
      of all subnets; check finite losses, one heights-kernel launch per
@@ -57,8 +65,11 @@ Phases:
      checkpoint loaded into a fresh ``MV3D`` gives bit-equal detections;
      then one small f32 training step on the card against the CPU;
   6. time each kernel against its plain version and the one PyTorch call
-     that computes the same function, where there is one (CUDA events), at
-     B=1, 2 and 8; each in-process serving configuration at B=1 and B=8
+     that computes the same function, where there is one (CUDA events, the
+     wrapper included), at B=1, 2 and 8, beside the kernel's device time
+     alone (the sum of the card's kernel intervals in a torch.profiler
+     trace of the same calls); each in-process serving configuration at
+     B=1 and B=8
      (closed loop, three windows of SERVE_WINDOW_S seconds after a warm-up
      window of SERVE_WARMUP_S seconds: per window frames/s and the median
      and p90 latency, then the median and range over the windows); a B=1
@@ -85,8 +96,9 @@ are removed. Run from the repository root:
     python3 chip_smoke.py [--profile DIR]
 
 ``make_cloud``, ``SynthDrive``, ``small_reference``,
-``small_train_reference``, ``sort_cases``, ``check_sort`` and
-``check_sort_then_sweep`` are shared with the port's tests.
+``small_train_reference``, ``sort_cases``, ``check_sort``,
+``check_sort_then_sweep``, ``padded_cases`` and ``check_padded_cases`` are
+shared with the port's tests.
 """
 
 import argparse
@@ -624,9 +636,10 @@ def kernel_bounds(b, n_points, n_cells, zn, n_sc):
     the work is a few integer ops per byte, far below the card's peak
     rate, so bytes bound both. K2 at the serving path's bf16 heights
     (``voxelize_padded``) and with f32 heights (``voxelize_padded_f32``).
-    K4 (``sort_bitonic``) reads and writes an i32 key and two f32
-    payloads; its network's log2(n)(log2(n)+1)/2 passes (136 at n =
-    65,536) are not in the bound, which no comparison sort can reach."""
+    K4 (``sort_radix``) reads and writes an i32 key and two f32 payloads
+    per point; the bitonic kernel (``sort_bitonic``) the same for rows of
+    ``2 * n_points``, the length it is timed at. Neither bound counts the
+    digit passes or network stages, which no sort can reach."""
     n_flat = n_cells * zn
     sweep_bytes = b * (n_points * 12 + n_flat * 4 + n_cells * 8)
     heights_bytes = b * (n_points * 8 + n_flat * 4)
@@ -639,7 +652,28 @@ def kernel_bounds(b, n_points, n_cells, zn, n_sc):
         ("voxelize_sweep", sweep_bytes), ("voxelize_heights", heights_bytes),
         ("voxelize_padded", padded_bytes(2)),
         ("voxelize_padded_f32", padded_bytes(4)),
-        ("sort_bitonic", sort_bytes))}
+        ("sort_radix", sort_bytes), ("sort_bitonic", 2 * sort_bytes))}
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time per call of ``fn`` in ms: the sum of the card's kernel
+    (and memset) intervals in a torch.profiler trace of ``iters`` calls,
+    after warm-up; the host's share of a call is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type.name == "CUDA")
+    if not us:
+        raise AssertionError("the profiler recorded no device activity")
+    return us / 1e3 / iters
 
 
 def sort_library(key, p1, p2):
@@ -651,29 +685,40 @@ def sort_library(key, p1, p2):
 
 
 def sort_cases(rng, b, n):
-    """K4's hard inputs: (B, n) int32 keys with heavy ties (values in
-    [0, 16)), all equal (stability alone decides the order) and negative
-    (with the int32 extremes), each with two f32 payloads."""
+    """K4's hard inputs: (B, n) int32 keys whose radix sort needs 0 to 4
+    digit passes: all equal (0; stability alone decides the order), heavy
+    ties in one byte (values in [0, 16): 1), [0, 4096) (2), voxel ids in
+    [0, 12,000,000) as the path's (3) and negative with the int32
+    extremes (4); each with two f32 payloads."""
     import numpy as np
     neg = rng.randint(-1000, 1000, (b, n))
-    neg[:, :4] = [-2 ** 31, 2 ** 31 - 1, -1, 0]
-    keys = {"ties": rng.randint(0, 16, (b, n)), "equal": np.full((b, n), 7),
-            "negative": neg}
+    neg[:, :4] = np.array([-2 ** 31, 2 ** 31 - 1, -1, 0])[:n]
+    keys = {"equal": np.full((b, n), 7), "ties": rng.randint(0, 16, (b, n)),
+            "wide": rng.randint(0, 4096, (b, n)),
+            "voxel": rng.randint(0, 12_000_000, (b, n)), "negative": neg}
     return {kind: (k.astype(np.int32), rng.rand(b, n).astype(np.float32),
                    rng.rand(b, n).astype(np.float32))
             for kind, k in keys.items()}
 
 
 def check_sort(key, p1, p2, dev, label):
-    """K4 on the card against its plain network on the card and on the
-    CPU and against ``sort_library``: sorted keys and payloads bit-equal.
-    Takes CPU arrays or tensors; returns max |kernel - plain| (0)."""
+    """K4 on the card against its plain radix twin on the card and on the
+    CPU and against ``sort_library``: sorted keys and payloads bit-equal;
+    one launch of the kernel the row length picks (the cluster radix sort
+    up to ``RADIX_CAPACITY``, the bitonic network above). Takes CPU
+    arrays or tensors; returns max |kernel - plain| (0)."""
     import torch
     from mv3d_tpu_torch.ops import sort_bitonic as sb
     cpu = [torch.as_tensor(x) for x in (key, p1, p2)]
     want = sb.bitonic_sort_plain(*cpu)
     args = [x.to(dev) for x in cpu]
+    counter = (sb.bitonic_sort_batched
+               if cpu[0].shape[1] <= sb.RADIX_CAPACITY
+               else sb.bitonic_network_kernel)
+    before = counter.launches
     got = sb.bitonic_sort_kernel(*args)
+    if counter.launches != before + 1:
+        raise AssertionError(f"sort kernel: the wrong kernel ran ({label})")
     plain = sb.bitonic_sort_plain(*args)
     lib = sort_library(*args)
     torch.cuda.synchronize()
@@ -681,7 +726,7 @@ def check_sort(key, p1, p2, dev, label):
         if not (torch.equal(g, p) and torch.equal(g.cpu(), w)
                 and torch.equal(g, l)):
             raise AssertionError(f"sort kernel {name} differs from its plain "
-                                 f"network or torch.sort ({label})")
+                                 f"twin or torch.sort ({label})")
     return max((g.double() - p.double()).abs().max().item()
                for g, p in zip(got, plain))
 
@@ -735,6 +780,69 @@ def check_padded_kernel(rng, cfg, dev, n_pts):
             f"(occupied cells {int((want[1] > 0).sum())}, nonzero height "
             f"slots {int((want[0] > 0).sum())})")
     return err
+
+
+def padded_cases(rng, b, n, n_sc, zn):
+    """K2's skewed inputs, (B, n) int32 ``flat`` and f32 ``hval``/``refl``
+    over ``n_sc`` supercells: all points in one tile of the kernel's plan
+    (the second), all in one cell (qz ties, decided by the lowest index),
+    all in the last (partial) tile with a tenth of them padding, and
+    lanes uniform over all 128 (those >= 4*zn are padding). Values lie in
+    [0, 1), with many ties, as the quantizer's do (it moves an exact slice
+    boundary to the slice below with value 1, never to 0 above), so equal
+    qz = s_eff + v means an equal slot."""
+    import numpy as np
+    from mv3d_tpu_torch.ops.voxelize_padded import LANES, tile_plan
+    tile_sc, n_tiles, _ = tile_plan(n_sc)
+    last = (n_tiles - 1) * tile_sc
+
+    def lanes(size):
+        sub = rng.randint(0, 4, size)
+        return sub * zn + rng.randint(0, zn, size)
+
+    def vals():
+        return rng.choice(np.float32([0.0, 1e-3, 0.25, 0.5, 0.75]), (b, n))
+
+    one_tile = rng.randint(tile_sc, min(2 * tile_sc, n_sc), (b, n))
+    cell = (n_sc // 2) * LANES + zn + rng.randint(0, 3, (b, n))
+    tail = rng.randint(last, n_sc, (b, n)) * LANES + lanes((b, n))
+    tail[:, ::10] = n_sc * LANES + rng.randint(0, 1000, (b, (n + 9) // 10))
+    cases = {
+        "one tile": (one_tile * LANES + lanes((b, n)), vals()),
+        "one cell": (cell, rng.choice(np.float32([0.25, 0.5]), (b, n))),
+        "last tile": (tail, vals()),
+        "pad lanes": (rng.randint(0, n_sc, (b, n)) * LANES
+                      + rng.randint(0, LANES, (b, n)), vals()),
+    }
+    return {kind: (f.astype(np.int32), v.astype(np.float32),
+                   rng.rand(b, n).astype(np.float32))
+            for kind, (f, v) in cases.items()}
+
+
+def check_padded_cases(rng, dev, b, n, n_sc, zn):
+    """K2 on ``padded_cases`` against its plain version on the card and on
+    the CPU, heights in f32 and bf16: bit-equal. Returns the kinds'
+    occupied cells and the max |kernel - plain| (0)."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize_padded as vp
+    occupied, err = {}, 0.0
+    for kind, case in padded_cases(rng, b, n, n_sc, zn).items():
+        cpu = [torch.from_numpy(x) for x in case]
+        for dtype in (torch.float32, torch.bfloat16):
+            want = vp.scatter_top_padded_plain(*cpu, n_sc, zn, dtype)
+            args = (*(x.to(dev) for x in cpu), n_sc, zn, dtype)
+            got = vp.scatter_top_padded_kernel(*args)
+            plain = vp.scatter_top_padded_plain(*args)
+            torch.cuda.synchronize()
+            for name, g, p, w in zip(("heights", "count", "intensity"), got,
+                                     plain, want):
+                if not (torch.equal(g, p) and torch.equal(g.cpu(), w)):
+                    raise AssertionError(f"lane-padded kernel {name} "
+                                         f"({dtype}, {kind}) differs from "
+                                         f"its plain version")
+                err = max(err, (g.float() - p.float()).abs().max().item())
+        occupied[kind] = int((want[1] > 0).sum())
+    return occupied, err
 
 
 def check_folded_views(rng, cfg, dev, n_pts):
@@ -799,8 +907,9 @@ def serve_requests(model, requests, counters, want):
             raise AssertionError("non-finite detections")
     log(f"phase serve: {cfg.pipeline.view_layout} "
         f"({cfg.pipeline.top_view_dtype} view, {cfg.model.roi_align_impl} "
-        f"ROI-align): {len(requests)} requests of B=2 at full KITTI width, "
-        f"kernel launches {counts}, live detections "
+        f"ROI-align, voxel_order={cfg.pipeline.voxel_order}): "
+        f"{len(requests)} requests of B=2 x {requests[0][0].shape[1]} points "
+        f"at full KITTI width, kernel launches {counts}, live detections "
         f"{[int(d.mask.sum()) for d in outs]}")
     return counts
 
@@ -964,7 +1073,7 @@ def serve_http(rng, cfg, dev, work_dir, counters):
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counters.items()}
     want = {"voxelize_sweep": 3, "voxelize_padded": 0,
-            "voxelize_heights": 0, "sort_bitonic": 3}
+            "voxelize_heights": 0, "sort_radix": 3, "sort_bitonic": 0}
     if counts != want:
         raise AssertionError(f"HTTP requests: kernel launches {counts}, "
                              f"expected {want}")
@@ -1117,15 +1226,24 @@ def main(argv=None) -> int:
     counters = {"voxelize_sweep": sweep.scatter_top_fused_batched,
                 "voxelize_padded": vp.scatter_top_padded_batched,
                 "voxelize_heights": vh.scatter_max_batched,
-                "sort_bitonic": sb.bitonic_sort_batched}
+                "sort_radix": sb.bitonic_sort_batched,
+                "sort_bitonic": sb.bitonic_network_kernel}
 
-    # -- 2. build the four kernels, one nvcc each, in parallel ------------
+    # -- 2. build the five kernels, one nvcc each, in parallel ------------
     t0 = time.time()
     cuda_build.build_libraries(cuda_build.SOURCES)
-    for mod in (sweep, vp, vh, sb):
-        mod._library()
-    log(f"phase build: voxelize_sweep, voxelize_padded, voxelize_heights "
-        f"and sort_bitonic built in {time.time() - t0:.2f} s")
+    for load in (sweep._library, vp._library, vh._library,
+                 sb._radix_library, sb._library):
+        load()
+    log(f"phase build: voxelize_sweep, voxelize_padded, voxelize_heights, "
+        f"sort_radix and sort_bitonic built in {time.time() - t0:.2f} s")
+    radix_smem = sb._radix_library().mv3d_sort_radix_smem()
+    for src, note in ((vp.SOURCE, f"tile_sweep dynamic shared memory "
+                       f"{vp.tile_plan(n_sc)[2]} B per block"),
+                      (sb.RADIX_SOURCE, f"sort_radix dynamic shared memory "
+                       f"{radix_smem} B per CTA, clusters of 8 CTAs")):
+        log(f"phase build: ptxas, {os.path.basename(src)}: "
+            + "; ".join(cuda_build.ptxas_report(src)) + f"; {note}")
 
     # -- 3. each kernel against its plain version -------------------------
     def prep(b, device, s2d=False):
@@ -1154,6 +1272,13 @@ def main(argv=None) -> int:
         f"heights/count/intensity bit-equal to the plain version on the "
         f"card and on the CPU (occupied cells {int((want[1] > 0).sum())})")
     padded_err = check_padded_kernel(rng, cfg, dev, n_pts)
+    for b, n, ns in ((2, n_pts, n_sc), (2, 2048, 200)):
+        occupied, err = check_padded_cases(rng, dev, b, n, ns, zn)
+        padded_err = max(padded_err, err)
+        log(f"phase kernel-vs-plain: voxelize_padded B={b} N={n} n_sc={ns} "
+            f"(tiles of {vp.tile_plan(ns)[0]} supercells) on skewed clouds, "
+            f"heights f32 and bf16: bit-equal to the plain version on the "
+            f"card and on the CPU (occupied cells {occupied})")
     want_h = vh.scatter_max_plain(flat, val, n_flat)
     hargs = (flat.to(dev), val.to(dev), n_flat)
     got_h = vh.scatter_max_kernel(*hargs)
@@ -1181,17 +1306,26 @@ def main(argv=None) -> int:
     sort_err = check_sort(flat, val, refl, dev, f"path inputs B=2 "
                           f"N={n_pts}")
     occupied = check_sort_then_sweep(*args)
-    log(f"phase kernel-vs-plain: sort_bitonic B=2 N={n_pts} (the path's "
-        f"flat/val/refl): keys and payloads bit-equal to the plain network "
-        f"on the card and on the CPU and to torch.sort(stable=True) + "
-        f"gathers; K1 on the sorted points equals K1 on the unsorted ones "
-        f"bit for bit ({occupied} occupied cells)")
-    for n in (256, 2048, 8192):
+    log(f"phase kernel-vs-plain: sort_radix B=2 N={n_pts} (the path's "
+        f"flat/val/refl): one launch; keys and payloads bit-equal to the "
+        f"plain radix twin on the card and on the CPU and to "
+        f"torch.sort(stable=True) + gathers; K1 on the sorted points equals "
+        f"K1 on the unsorted ones bit for bit ({occupied} occupied cells)")
+    bitonic_err = 0.0
+    for n in (256, 2048, 8192, n_pts, 2 * n_pts):
         for kind, case in sort_cases(rng, 2, n).items():
-            sort_err = max(sort_err, check_sort(*case, dev, f"{kind} n={n}"))
-    log("phase kernel-vs-plain: sort_bitonic B=2 at n = 256, 2048, 8192 on "
-        "keys with heavy ties, all equal and negative: bit-equal to the "
-        "plain network on the card and on the CPU and to torch.sort")
+            err = check_sort(*case, dev, f"{kind} n={n}")
+            if n > sb.RADIX_CAPACITY:
+                bitonic_err = max(bitonic_err, err)
+            else:
+                sort_err = max(sort_err, err)
+    log(f"phase kernel-vs-plain: sort_radix B=2 at n = 256, 2048, 8192, "
+        f"{n_pts} and sort_bitonic at n = {2 * n_pts} (above the radix "
+        f"capacity {sb.RADIX_CAPACITY}) on keys that need 0-4 digit passes "
+        f"(all equal, ties in [0, 16), [0, 4096), voxel ids, negative with "
+        f"the int32 extremes): bit-equal to the plain twin on the card and "
+        f"on the CPU and to torch.sort, one launch of the kernel the row "
+        f"length picks")
     pflat, pval, prefl = prep(2, dev, s2d="pad")
     bf16 = torch.bfloat16
     timed = {"voxelize_sweep": (
@@ -1208,15 +1342,34 @@ def main(argv=None) -> int:
                  cuda_ms(lambda: vh.scatter_max_kernel(*hargs)),
                  cuda_ms(lambda: vh.scatter_max_plain(*hargs)),
                  cuda_ms(heights_library)),
-             "sort_bitonic": (
-                 cuda_ms(lambda: sb.bitonic_sort_kernel(*args[:3])),
+             "sort_radix": (
+                 cuda_ms(lambda: sb.radix_sort_kernel(*args[:3])),
                  cuda_ms(lambda: sb.bitonic_sort_plain(*args[:3]), 20),
                  cuda_ms(lambda: sort_library(*args[:3])))}
+    long_rows = [torch.cat([x, x.flip(-1)], -1) for x in args[:3]]
+    timed["sort_bitonic"] = (
+        cuda_ms(lambda: sb.bitonic_network_kernel(*long_rows)),
+        cuda_ms(lambda: sb.bitonic_sort_plain(*long_rows), 20),
+        cuda_ms(lambda: sort_library(*long_rows)))
+    device = {"voxelize_sweep": device_ms(
+                  lambda: sweep.scatter_top_fused_kernel(*args)),
+              "voxelize_padded": device_ms(
+                  lambda: vp.scatter_top_padded_kernel(pflat, pval, prefl,
+                                                       n_sc, zn, bf16)),
+              "voxelize_heights": device_ms(
+                  lambda: vh.scatter_max_kernel(*hargs)),
+              "sort_radix": device_ms(
+                  lambda: sb.radix_sort_kernel(*args[:3])),
+              "sort_bitonic": device_ms(
+                  lambda: sb.bitonic_network_kernel(*long_rows))}
     padded_f32 = (cuda_ms(lambda: vp.scatter_top_padded_kernel(
                       pflat, pval, prefl, n_sc, zn)),
                   cuda_ms(lambda: vp.scatter_top_padded_plain(
+                      pflat, pval, prefl, n_sc, zn)),
+                  device_ms(lambda: vp.scatter_top_padded_kernel(
                       pflat, pval, prefl, n_sc, zn)))
     del got, plain, got_h, plain_h, lib_h, lib_idx, pflat, pval, prefl
+    del long_rows
     check_folded_views(rng, pad_cfg, dev, n_pts)
 
     # -- 4. serve three requests through each serving path ----------------
@@ -1228,18 +1381,34 @@ def main(argv=None) -> int:
     serve_launches = serve_requests(
         model, requests, counters,
         {"voxelize_sweep": 3, "voxelize_padded": 0,
-         "voxelize_heights": 0, "sort_bitonic": 0})["voxelize_sweep"]
+         "voxelize_heights": 0, "sort_radix": 0,
+         "sort_bitonic": 0})["voxelize_sweep"]
     check_top_view_card_vs_cpu(serve_cfg, requests[0][0], dev)
     small_reference(rng, dev)
     pad_model = MV3D(pad_cfg, device=dev, seed=0)
     padded_launches = serve_requests(
         pad_model, requests, counters,
         {"voxelize_sweep": 0, "voxelize_padded": 3,
-         "voxelize_heights": 0, "sort_bitonic": 0})["voxelize_padded"]
+         "voxelize_heights": 0, "sort_radix": 0,
+         "sort_bitonic": 0})["voxelize_padded"]
     check_top_view_card_vs_cpu(pad_cfg, requests[0][0], dev)
     small_reference(rng, dev, serving=True)
     http_launches = serve_http(rng, serve_cfg, dev, work_dirs[0],
-                               counters)["sort_bitonic"]
+                               counters)["sort_radix"]
+    # uncropped sweeps longer than a cluster holds: the bitonic kernel
+    long_model = MV3D(dataclasses.replace(serve_cfg, pipeline=dataclasses.
+                                          replace(serve_cfg.pipeline,
+                                                  voxel_order="pallas-sort")),
+                      device=dev, seed=0)
+    long_requests = [(make_cloud(rng, 2, 2 * n_pts, cfg, tricky=False),
+                      np.full(2, 2 * n_pts, np.int32), rgb)
+                     for _, _, rgb in requests[:2]]
+    long_launches = serve_requests(
+        long_model, long_requests, counters,
+        {"voxelize_sweep": 2, "voxelize_padded": 0,
+         "voxelize_heights": 0, "sort_radix": 0,
+         "sort_bitonic": 2})["sort_bitonic"]
+    del long_model, long_requests
 
     # -- 5. train at full width, then a small step against the CPU -------
     trainer, loader, train_launches = train_phase(
@@ -1251,53 +1420,64 @@ def main(argv=None) -> int:
     bounds = {b: kernel_bounds(b, n_pts, n_cells, zn, n_sc)
               for b in (1, 2, 8)}
     for name, (k_ms, p_ms, l_ms) in timed.items():
-        log(f"phase timing: {name} B=2: kernel {k_ms * 1e3:.1f} us, plain "
+        log(f"phase timing: {name} B=2"
+            + (f" n={2 * n_pts}" if name == "sort_bitonic" else "")
+            + f": kernel {k_ms * 1e3:.1f} us with the wrapper, "
+            f"{device[name] * 1e3:.1f} us on the device; plain "
             f"{p_ms * 1e3:.1f} us, library call "
             + (f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none")
             + f", bound {bounds[2][name] * 1e3:.1f} us"
             + (" (bf16 heights)" if name == "voxelize_padded" else "")
             + f" [{card}]")
     log(f"phase timing: voxelize_padded B=2 f32 heights: kernel "
-        f"{padded_f32[0] * 1e3:.1f} us, plain {padded_f32[1] * 1e3:.1f} us, "
-        f"bound {bounds[2]['voxelize_padded_f32'] * 1e3:.1f} us [{card}]")
+        f"{padded_f32[0] * 1e3:.1f} us with the wrapper, "
+        f"{padded_f32[2] * 1e3:.1f} us on the device; plain "
+        f"{padded_f32[1] * 1e3:.1f} us, bound "
+        f"{bounds[2]['voxelize_padded_f32'] * 1e3:.1f} us [{card}]")
+
+    def both(kernel):
+        """(ms with the wrapper, ms on the device) per call of kernel."""
+        return cuda_ms(kernel), device_ms(kernel)
+
+    def us(pair):
+        return (f"kernel {pair[0] * 1e3:.1f} us with the wrapper, "
+                f"{pair[1] * 1e3:.1f} us on the device")
+
     for b in (1, 8):
         f, v, r = prep(b, dev)
         idx = torch.where(f < n_flat, f.long() + torch.arange(
             b, device=dev)[:, None] * n_flat, b * n_flat).reshape(-1)
-        k1, p1 = (cuda_ms(lambda: sweep.scatter_top_fused_kernel(
-                      f, v, r, n_cells, zn)),
-                  cuda_ms(lambda: sweep.scatter_top_fused_plain(
-                      f, v, r, n_cells, zn)))
-        k3, p3, l3 = (cuda_ms(lambda: vh.scatter_max_kernel(f, v, n_flat)),
-                      cuda_ms(lambda: vh.scatter_max_plain(f, v, n_flat)),
-                      cuda_ms(lambda: torch.zeros(
-                          b * n_flat + 1, device=dev).scatter_reduce_(
-                              0, idx, v.reshape(-1), "amax")))
-        log(f"phase timing: voxelize_sweep B={b}: kernel {k1 * 1e3:.1f} us, "
-            f"plain {p1 * 1e3:.1f} us, bound "
+        k1 = both(lambda: sweep.scatter_top_fused_kernel(f, v, r, n_cells,
+                                                         zn))
+        p1 = cuda_ms(lambda: sweep.scatter_top_fused_plain(f, v, r, n_cells,
+                                                          zn))
+        k3 = both(lambda: vh.scatter_max_kernel(f, v, n_flat))
+        p3, l3 = (cuda_ms(lambda: vh.scatter_max_plain(f, v, n_flat)),
+                  cuda_ms(lambda: torch.zeros(
+                      b * n_flat + 1, device=dev).scatter_reduce_(
+                          0, idx, v.reshape(-1), "amax")))
+        log(f"phase timing: voxelize_sweep B={b}: {us(k1)}; plain "
+            f"{p1 * 1e3:.1f} us, bound "
             f"{bounds[b]['voxelize_sweep'] * 1e3:.1f} us [{card}]")
-        log(f"phase timing: voxelize_heights B={b}: kernel {k3 * 1e3:.1f} "
-            f"us, plain {p3 * 1e3:.1f} us, scatter_reduce_ {l3 * 1e3:.1f} "
-            f"us, bound {bounds[b]['voxelize_heights'] * 1e3:.1f} us "
-            f"[{card}]")
-        del f, v, r, idx
-        f, v, r = prep(b, dev, s2d="pad")
-        k2, p2 = (cuda_ms(lambda: vp.scatter_top_padded_kernel(
-                      f, v, r, n_sc, zn, bf16)),
-                  cuda_ms(lambda: vp.scatter_top_padded_plain(
-                      f, v, r, n_sc, zn, bf16)))
-        log(f"phase timing: voxelize_padded B={b} (bf16 heights): kernel "
-            f"{k2 * 1e3:.1f} us, plain {p2 * 1e3:.1f} us, bound "
-            f"{bounds[b]['voxelize_padded'] * 1e3:.1f} us [{card}]")
+        log(f"phase timing: voxelize_heights B={b}: {us(k3)}; plain "
+            f"{p3 * 1e3:.1f} us, scatter_reduce_ {l3 * 1e3:.1f} us, bound "
+            f"{bounds[b]['voxelize_heights'] * 1e3:.1f} us [{card}]")
+        del idx
+        k4 = both(lambda: sb.radix_sort_kernel(f, v, r))
+        p4, l4 = (cuda_ms(lambda: sb.bitonic_sort_plain(f, v, r), 20),
+                  cuda_ms(lambda: sort_library(f, v, r)))
+        log(f"phase timing: sort_radix B={b}: {us(k4)}; plain "
+            f"{p4 * 1e3:.1f} us, torch.sort + gathers {l4 * 1e3:.1f} us, "
+            f"bound {bounds[b]['sort_radix'] * 1e3:.1f} us [{card}]")
         del f, v, r
-        f, v, r = prep(b, dev)
-        k4, p4, l4 = (cuda_ms(lambda: sb.bitonic_sort_kernel(f, v, r)),
-                      cuda_ms(lambda: sb.bitonic_sort_plain(f, v, r), 20),
-                      cuda_ms(lambda: sort_library(f, v, r)))
-        log(f"phase timing: sort_bitonic B={b}: kernel {k4 * 1e3:.1f} us, "
-            f"plain {p4 * 1e3:.1f} us, torch.sort + gathers "
-            f"{l4 * 1e3:.1f} us, bound "
-            f"{bounds[b]['sort_bitonic'] * 1e3:.1f} us [{card}]")
+        f, v, r = prep(b, dev, s2d="pad")
+        k2 = both(lambda: vp.scatter_top_padded_kernel(f, v, r, n_sc, zn,
+                                                       bf16))
+        p2 = cuda_ms(lambda: vp.scatter_top_padded_plain(f, v, r, n_sc, zn,
+                                                         bf16))
+        log(f"phase timing: voxelize_padded B={b} (bf16 heights): {us(k2)}; "
+            f"plain {p2 * 1e3:.1f} us, bound "
+            f"{bounds[b]['voxelize_padded'] * 1e3:.1f} us [{card}]")
         del f, v, r
     for label, m in (("hwc", model), ("s2d2p", pad_model)):
         serve_timing(m, label, rng, cfg, dev, n_pts, opts.profile, card)
@@ -1344,10 +1524,14 @@ def main(argv=None) -> int:
                   source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:46",
                   launches=train_launches, max_abs_err=heights_err),
+              "sort_radix": dict(
+                  source="mv3d_tpu_torch/csrc/sort_radix.cu",
+                  replaces="mv3d_tpu/ops/sort_pallas.py:73",
+                  launches=http_launches, max_abs_err=sort_err),
               "sort_bitonic": dict(
                   source="mv3d_tpu_torch/csrc/sort_bitonic.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",
-                  launches=http_launches, max_abs_err=sort_err)}
+                  launches=long_launches, max_abs_err=bitonic_err)}
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", **rec, ms=timed[name][0],

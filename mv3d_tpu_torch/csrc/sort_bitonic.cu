@@ -31,8 +31,10 @@
 // What bounds it: a sorting network makes log2(n) (log2(n) + 1) / 2
 // passes (136 for n = 65,536) over its data, against the one read and one
 // write of a byte bound; the passes with j < C stay in shared memory, the
-// 14 with j >= C go through L2 (a 65,536-row frame is 1 MB). A radix sort
-// or binning by tile is later work.
+// 14 with j >= C go through L2 (a 65,536-row frame is 1 MB). The sort's
+// wrapper (ops/sort_bitonic.py) sends it only rows longer than the cluster
+// radix sort holds (sort_radix.cu, 65,536 elements), such as uncropped
+// sweeps of 131,072 points.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC. Plain C interface for ctypes.

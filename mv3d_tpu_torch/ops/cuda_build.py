@@ -5,7 +5,9 @@ compiled by nvcc into its own shared library in ``mv3d_tpu_torch/_build/``,
 named by the source's stem and the hash of its text and the flags, so an
 edited source rebuilds. The kernels' wrappers load their library with
 ctypes (:func:`load_library`) and set the argument types themselves.
-:func:`build_libraries` starts one nvcc per source, all at once.
+:func:`build_libraries` starts one nvcc per source, all at once, and keeps
+what ptxas reports (registers, spills, static shared memory per kernel)
+beside each library (:func:`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = tuple(os.path.join(CSRC, f) for f in (
     "voxelize_sweep.cu", "voxelize_padded.cu", "voxelize_heights.cu",
-    "sort_bitonic.cu"))
+    "sort_radix.cu", "sort_bitonic.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -44,6 +47,25 @@ def library_path(source: str) -> str:
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}_{digest[:16]}.so")
+
+
+def _report_path(lib: str) -> str:
+    return os.path.splitext(lib)[0] + ".ptxas.txt"
+
+
+def ptxas_report(source: str) -> List[str]:
+    """What ptxas said of each kernel of ``source``'s built library: per
+    kernel one line with its registers, spills and static shared memory
+    (dynamic shared memory is the launch's, not ptxas's)."""
+    with open(_report_path(library_path(source))) as f:
+        lines = [ln.strip() for ln in f]
+    out, name = [], None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and ("spill" in ln or ln.startswith("ptxas info    : Used")):
+            out.append(f"{name}: {ln.replace('ptxas info    : ', '')}")
+    return out
 
 
 def build_libraries(sources: Sequence[str]) -> List[str]:
@@ -73,6 +95,8 @@ def build_libraries(sources: Sequence[str]) -> List[str]:
                 errors.append(f"nvcc failed on {src} ({proc.returncode}):"
                               f"\n{out}")
             else:
+                with open(_report_path(lib), "w") as f:
+                    f.write(out)
                 os.replace(tmp, lib)     # atomic: concurrent builds agree
         if errors:
             raise RuntimeError("\n".join(errors))

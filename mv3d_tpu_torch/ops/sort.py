@@ -1,22 +1,28 @@
-"""Stable bitonic sort as a reshape-based network of plain PyTorch ops.
+"""Stable key sorts with payloads in plain PyTorch ops.
 
-Port of ``mv3d_tpu/ops/sort.py::bitonic_sort_stable``, batched over rows:
-Batcher's bitonic network with the ``partner = i XOR j`` exchange written
-as a reshape (viewing a row as ``(n/(2j), 2, j)`` puts each pair on axis
-1), so every stage is a compare and two selects. A bitonic network is not
-stable; the original index rides along as a second key, which makes every
-(key, index) pair unique and the result exactly the stable ascending order.
+:func:`bitonic_sort_stable` is the port of
+``mv3d_tpu/ops/sort.py::bitonic_sort_stable``, batched over rows: Batcher's
+bitonic network with the ``partner = i XOR j`` exchange written as a
+reshape (viewing a row as ``(n/(2j), 2, j)`` puts each pair on axis 1), so
+every stage is a compare and two selects. A bitonic network is not stable;
+the original index rides along as a second key, which makes every (key,
+index) pair unique and the result exactly the stable ascending order.
 
-It is the plain version of the hand-written sort kernel
-(:mod:`mv3d_tpu_torch.ops.sort_bitonic`, K4) and what that kernel's
-wrapper runs on CPU tensors.
+:func:`radix_sort_stable` computes the same function the way the
+hand-written sort kernel does (:mod:`mv3d_tpu_torch.ops.sort_bitonic`, K4;
+``csrc/sort_radix.cu``): keys flipped to unsigned order, the digit passes
+planned from each row's min and max (:func:`radix_pass_plan`), and a
+stable reorder by each 8-bit digit, least significant first. It is the
+plain version that the K4 wrapper runs on CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
+
+RADIX_BITS = 8
 
 
 def bitonic_sort_stable(key: torch.Tensor, payloads: Sequence[torch.Tensor]
@@ -53,3 +59,47 @@ def bitonic_sort_stable(key: torch.Tensor, payloads: Sequence[torch.Tensor]
             j //= 2
         k *= 2
     return (arrs[0], *arrs[2:])
+
+
+def radix_pass_plan(lo: int, hi: int) -> List[int]:
+    """Bit shifts of the digit passes a stable LSD radix sort needs for a
+    row of sign-flipped keys (``key ^ 0x80000000`` as uint32) whose min is
+    ``lo`` and max ``hi``: every key shares the bits above the highest bit
+    of ``lo ^ hi``, so only the 8-bit digits at or below it are sorted.
+    None when all keys are equal; 3 for keys in [0, 2**24); 4 across 0."""
+    vary = lo ^ hi
+    if vary == 0:
+        return []
+    top = vary.bit_length() - 1
+    return list(range(0, top // RADIX_BITS * RADIX_BITS + 1, RADIX_BITS))
+
+
+def radix_sort_stable(key: torch.Tensor, payloads: Sequence[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Stable ascending sort of each row of int32 ``key`` ((..., n), any
+    n >= 1), carrying ``payloads`` of the same shape along, as the K4
+    kernel sorts: sign flip, each row's pass plan from its min and max, and
+    per planned digit a stable reorder of the row by that digit.
+
+    Returns (sorted_key, *sorted_payloads), equal to
+    :func:`bitonic_sort_stable`; values are only moved, so float payloads
+    keep their bits."""
+    n = key.shape[-1]
+    lead = key.shape[:-1]
+    arrs = [a.reshape(-1, n) for a in (key, *payloads)]
+    flipped = arrs[0].to(torch.int64) + 2 ** 31       # key ^ 0x80000000
+    plans = [radix_pass_plan(lo, hi) for lo, hi in zip(
+        flipped.min(-1).values.tolist(), flipped.max(-1).values.tolist())]
+    pos = torch.arange(n, device=key.device)
+    for shift in range(0, 32, RADIX_BITS):
+        rows = torch.tensor([shift in plan for plan in plans],
+                            device=key.device)
+        if not rows.any():
+            continue
+        digit = (flipped >> shift) & (2 ** RADIX_BITS - 1)
+        digit = torch.where(rows[:, None], digit, 0)
+        # (digit, position) is unique: ordering by it is the stable order
+        order = torch.argsort(digit * n + pos, dim=-1)
+        flipped = torch.gather(flipped, -1, order)
+        arrs = [torch.gather(a, -1, order) for a in arrs]
+    return tuple(a.reshape(*lead, n) for a in arrs)

@@ -19,9 +19,11 @@ Entries with ``flat >= n_sc*128``, or in a lane ``>= 4*zn``, are padding.
 Heights come in f32 or bf16; bf16 is the f32 max rounded once
 (round-to-nearest is monotone, so it commutes with max).
 
-The kernel (``mv3d_tpu_torch/csrc/voxelize_padded.cu``) is K1's atomic
-design with the lane-padded decode (see its note). The plain version
-decodes the same way and runs the sweeps' shared arithmetic
+The kernel (``mv3d_tpu_torch/csrc/voxelize_padded.cu``) bins the points by
+output tile (a counting sort: histogram and ranks, scan, placement) and
+sweeps each tile of ``tile_sc`` supercells in shared memory, writing every
+output byte once (see its note); :func:`tile_plan` sizes the tiles. The
+plain version decodes the same way and runs the sweeps' shared arithmetic
 (:func:`.voxelize_sweep.sweep_plain`), then rounds heights once.
 
 Dispatch: a tensor on the CPU goes to :func:`scatter_top_padded_plain`; a
@@ -45,6 +47,26 @@ from .voxelize_sweep import check_inputs, sweep_plain
 SOURCE = os.path.join(CSRC, "voxelize_padded.cu")
 LANES = 128          # heights lanes per supercell
 _HEIGHTS_DTYPES = (torch.float32, torch.bfloat16)
+TILE_SC = 64         # supercells per tile of the kernel's sweep
+
+
+def tile_plan(n_sc: int, heights_dtype: torch.dtype = torch.float32
+              ) -> Tuple[int, int, int]:
+    """The kernel's tiles for ``n_sc`` supercells: (supercells per tile,
+    number of tiles, shared-memory bytes of one tile). Tiles cover the
+    supercells in order, the last one possibly partial. A tile holds its
+    heights as f32 in shared memory whatever ``heights_dtype`` (bf16 is
+    the f32 max rounded once at the store), its 64-bit winners and its
+    int32 counts: 560 bytes per supercell, 35,840 at 64 supercells
+    (``mv3d_voxelize_padded_smem`` in the source)."""
+    if heights_dtype not in _HEIGHTS_DTYPES:
+        raise TypeError(f"heights_dtype {heights_dtype}: expected one of "
+                        f"{_HEIGHTS_DTYPES}")
+    if n_sc < 1:
+        raise ValueError(f"n_sc={n_sc}: no supercell to tile")
+    tile_sc = min(TILE_SC, n_sc)
+    smem = tile_sc * (LANES * 4 + 4 * 8 + 4 * 4)
+    return tile_sc, -(-n_sc // tile_sc), smem
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,8 +74,12 @@ def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.mv3d_voxelize_padded
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    fn.argtypes = [p, p, p, i64, i64, i64, i32, i32, p, p, p, p, p, p]
+    fn.argtypes = [p, p, p, i64, i64, i64, i32, i32, i32, p, p, p, p, p]
     fn.restype = ctypes.c_int
+    lib.mv3d_voxelize_padded_smem.argtypes = [i32]
+    lib.mv3d_voxelize_padded_smem.restype = i64
+    if lib.mv3d_voxelize_padded_smem(TILE_SC) != tile_plan(TILE_SC)[2]:
+        raise RuntimeError("voxelize_padded.cu and tile_plan disagree")
     return lib
 
 
@@ -79,23 +105,29 @@ def scatter_top_padded_kernel(flat: torch.Tensor, hval: torch.Tensor,
     if flat.device.type != "cuda":
         raise ValueError(f"the lane-padded sweep kernel needs CUDA tensors, "
                          f"got {flat.device}")
-    lib = _library()
-    flat, hval, refl = (t.contiguous() for t in (flat, hval, refl))
     bsz, n = flat.shape
+    if bsz > 65535:
+        raise ValueError(f"the lane-padded sweep kernel takes at most 65,535 "
+                         f"frames, got {bsz}")
+    lib = _library()
+    tile_sc, n_tiles, _ = tile_plan(n_sc, heights_dtype)
+    flat, hval, refl = (t.contiguous() for t in (flat, hval, refl))
     dev = flat.device
-    n_cells = n_sc * 4
-    heights = torch.zeros(bsz, n_sc * LANES, dtype=heights_dtype, device=dev)
-    count = torch.empty(bsz, n_cells, dtype=torch.float32, device=dev)
-    intensity = torch.empty(bsz, n_cells, dtype=torch.float32, device=dev)
-    cnt = torch.zeros(bsz, n_cells, dtype=torch.int32, device=dev)
-    best = torch.zeros(bsz, n_cells, dtype=torch.int64, device=dev)
+    # the sweep writes every output byte: no fill
+    heights = torch.empty(bsz, n_sc * LANES, dtype=heights_dtype, device=dev)
+    count = torch.empty(bsz, n_sc * 4, dtype=torch.float32, device=dev)
+    intensity = torch.empty(bsz, n_sc * 4, dtype=torch.float32, device=dev)
+    # bin histogram and starts, the points' ranks and the bins, in one
+    # int32 scratch
+    work = torch.empty(bsz * (2 * n_tiles + 1 + 2 * n), dtype=torch.int32,
+                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mv3d_voxelize_padded(
             flat.data_ptr(), hval.data_ptr(), refl.data_ptr(), bsz, n, n_sc,
-            zn, int(heights_dtype == torch.bfloat16), heights.data_ptr(),
-            count.data_ptr(), intensity.data_ptr(), cnt.data_ptr(),
-            best.data_ptr(), stream)
+            zn, int(heights_dtype == torch.bfloat16), tile_sc,
+            heights.data_ptr(), count.data_ptr(), intensity.data_ptr(),
+            work.data_ptr(), stream)
     check_launch(err, "lane-padded voxelize sweep")
     scatter_top_padded_batched.launches += 1
     return heights, count, intensity

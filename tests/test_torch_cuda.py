@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_sort, check_sort_then_sweep, make_cloud,
-                        serve_http, small_reference, small_train_reference,
-                        sort_cases)
+from chip_smoke import (check_padded_cases, check_sort, check_sort_then_sweep,
+                        make_cloud, serve_http, small_reference,
+                        small_train_reference, sort_cases)
 from mv3d_tpu_torch import kitti_config
 from mv3d_tpu_torch.ops import voxelize as tvox
 from mv3d_tpu_torch.ops import (sort_bitonic, voxelize_heights,
@@ -84,6 +84,21 @@ def test_padded_kernel_bit_equals_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,n_sc", [(2, 65536, 121600), (8, 65536, 121600),
+                                      (2, 2048, 200)])
+def test_padded_kernel_on_skewed_clouds_on_card(b, n, n_sc):
+    """K2 on ``chip_smoke.padded_cases`` (all points in one tile, all in
+    one cell, in the last partial tile, in pad lanes), heights in f32 and
+    bf16: bit-equal to its plain version on the card and on the CPU, at the
+    KITTI width (n_sc = 400 x 304, 1,900 tiles) and at n_sc = 200 (a
+    partial last tile)."""
+    dev = _cuda()
+    occupied, err = check_padded_cases(np.random.RandomState(n_sc), dev, b,
+                                       n, n_sc, CFG.top.zn)
+    assert err == 0 and occupied["one cell"] == b
+
+
+@pytest.mark.cuda
 def test_predict_from_points_card_matches_cpu():
     """A small f32 model from one seed, on the card and on the CPU, through
     the steps of ``predict_from_points``: the same proposals and live
@@ -122,12 +137,13 @@ def test_training_step_card_matches_cpu(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 2048, 8192])
+@pytest.mark.parametrize("n", [256, 2048, 8192, 65536, 131072])
 def test_sort_kernel_bit_equals_plain_and_torch_sort_on_card(n):
-    """The bitonic sort kernel (K4) on keys with heavy ties, all equal and
-    negative (B=2): keys and payloads bit-equal to its plain network on
-    the card and on the CPU and to ``torch.sort(stable=True)`` + gathers
-    (``chip_smoke.check_sort``)."""
+    """The sort kernel (K4: the cluster radix sort up to 65,536 elements,
+    the bitonic network above) on keys that need 0 to 4 digit passes
+    (B=2): keys and payloads bit-equal to its plain twin on the card and
+    on the CPU and to ``torch.sort(stable=True)`` + gathers, one launch of
+    the kernel the row length picks (``chip_smoke.check_sort``)."""
     dev = _cuda()
     for kind, case in sort_cases(np.random.RandomState(n), 2, n).items():
         assert check_sort(*case, dev, f"{kind} n={n}") == 0
@@ -155,13 +171,15 @@ def test_sort_kernel_on_the_serving_path_inputs():
 @pytest.mark.cuda
 def test_http_serving_at_pallas_sort_on_card(tmp_path):
     """The CLI-exported pallas-sort artifact over HTTP at full KITTI width
-    (``chip_smoke.serve_http``): K4 and K1 once per request, answers
+    (``chip_smoke.serve_http``): K4 (the radix kernel) and K1 once per
+    request, the bitonic kernel never, answers
     bit-equal to in-process calls and to ``voxel_order="sort"``."""
     dev = _cuda()
     counters = {"voxelize_sweep": voxelize_sweep.scatter_top_fused_batched,
                 "voxelize_padded": voxelize_padded.scatter_top_padded_batched,
                 "voxelize_heights": voxelize_heights.scatter_max_batched,
-                "sort_bitonic": sort_bitonic.bitonic_sort_batched}
+                "sort_radix": sort_bitonic.bitonic_sort_batched,
+                "sort_bitonic": sort_bitonic.bitonic_network_kernel}
     counts = serve_http(np.random.RandomState(4), CFG, dev, str(tmp_path),
                         counters)
-    assert counts["sort_bitonic"] == counts["voxelize_sweep"] == 3
+    assert counts["sort_radix"] == counts["voxelize_sweep"] == 3

@@ -252,6 +252,64 @@ def test_padded_plain_matches_bruteforce(rng):
     assert torch.equal(c16, c) and torch.equal(r16, r)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_sc", [1, 5, 64, 200, 1280, 121600])
+def test_padded_tile_plan_covers_every_supercell(n_sc, dtype):
+    """The K2 kernel's tiles: consecutive runs of at most TILE_SC
+    supercells that cover [0, n_sc) once, the last one possibly partial;
+    every supercell's tile (``sc // tile_sc``, as the kernel bins) is one of
+    them; a tile's shared memory (f32 heights, 64-bit winners, int32
+    counts, whatever the output dtype) fits in one H100 block."""
+    tile_sc, n_tiles, smem = voxelize_padded.tile_plan(n_sc, dtype)
+    assert 1 <= tile_sc <= voxelize_padded.TILE_SC
+    bounds = [(t * tile_sc, min((t + 1) * tile_sc, n_sc))
+              for t in range(n_tiles)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n_sc
+    assert all(lo < hi and hi - lo <= tile_sc for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    sc = np.arange(n_sc)
+    tiles = sc // tile_sc
+    assert tiles.max() == n_tiles - 1
+    lo = np.array([b[0] for b in bounds])[tiles]
+    hi = np.array([b[1] for b in bounds])[tiles]
+    assert ((lo <= sc) & (sc < hi)).all()
+    assert smem == tile_sc * (128 * 4 + 4 * 8 + 4 * 4)
+    assert smem <= 232448         # what one H100 block may use (227 KB)
+    if n_sc == 121600:            # the KITTI width: 1,900 full tiles
+        assert (tile_sc, n_tiles, smem) == (64, 1900, 35840)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["one tile", "one cell", "last tile",
+                                  "pad lanes"])
+def test_padded_plain_matches_jax_on_skewed_clouds(kind, dtype):
+    """The K2 plain version against JAX's ``scatter_top_padded_batched``
+    (interpret mode) on ``chip_smoke.padded_cases`` (n_sc = 200, so the
+    kernel's last tile holds 8 supercells): all points in one tile, all in
+    one cell (qz ties decided by the lowest index), in the last partial
+    tile with padding beyond n_sc*128, and lanes over all 128. The port
+    treats lanes >= 4*zn as padding, where JAX, whose quantizer never
+    emits them, would spill into the next cell: JAX gets those points as
+    padding. Bit-exact in f32 and bf16."""
+    n_sc, zn = 200, KITTI.top.zn
+    flat, hval, refl = chip_smoke.padded_cases(
+        np.random.RandomState(9), 2, 1024, n_sc, zn)[kind]
+    got = voxelize_padded.scatter_top_padded_plain(
+        *(torch.from_numpy(x) for x in (flat, hval, refl)), n_sc, zn, dtype)
+    pad_lane = ((flat % 128) >= 4 * zn) & (flat < n_sc * 128)
+    assert pad_lane.any() == (kind == "pad lanes")
+    want = voxelize_pallas.scatter_top_padded_batched(
+        np.where(pad_lane, n_sc * 128, flat).astype(np.int32), hval, refl,
+        n_sc, zn, interpret=True,
+        heights_dtype=jnp.bfloat16 if dtype == torch.bfloat16
+        else jnp.float32)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_as_np(g), _as_np(w).reshape(g.shape))
+    if kind == "one cell":
+        assert int((got[1] > 0).sum()) == 2       # one cell per frame
+    assert (got[1] > 0).sum() > 0
+
+
 def test_padded_cpu_tensors_take_the_plain_version():
     before = voxelize_padded.scatter_top_padded_batched.launches
     flat = torch.tensor([[0, 130, 130, 131, 256]], dtype=torch.int32)

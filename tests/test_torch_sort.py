@@ -1,10 +1,13 @@
-"""Port parity of the stable bitonic sort (K4) and of the voxelizer's
+"""Port parity of the stable sort (K4) and of the voxelizer's
 ``voxel_order`` routing.
 
-The plain network (``mv3d_tpu_torch/ops/sort.py``, what the K4 wrapper runs
-on CPU tensors) against the JAX Pallas kernel it replaces
-(``bitonic_sort_pallas`` in interpret mode), the JAX pure-jnp network and
-numpy's stable argsort; then the port's voxelizer at
+The plain twins (``mv3d_tpu_torch/ops/sort.py``: the radix twin the K4
+wrapper runs on CPU tensors, and the port of the jnp bitonic network)
+against the JAX Pallas kernel they replace (``bitonic_sort_pallas`` in
+interpret mode), the JAX pure-jnp network, numpy's stable argsort and
+``torch.sort(stable=True)``; the radix twin's pass plan on keys that need
+0 to 4 digit passes; the wrapper's choice of kernel by row length; then the
+port's voxelizer at
 ``voxel_order="pallas-sort"``/``"bitonic"`` against JAX's eager
 ``lidar_to_top_batch`` at ``"pallas-sort"`` (K4, then the fused sweep, both
 in interpret mode). A sort only moves values, so every comparison is
@@ -27,7 +30,8 @@ from mv3d_tpu.ops import voxelize as jvox
 from mv3d_tpu.ops.sort_pallas import bitonic_sort_pallas
 from mv3d_tpu_torch.ops import sort_bitonic
 from mv3d_tpu_torch.ops import voxelize as tvox
-from mv3d_tpu_torch.ops.sort import bitonic_sort_stable
+from mv3d_tpu_torch.ops.sort import (bitonic_sort_stable, radix_pass_plan,
+                                     radix_sort_stable)
 
 from test_torch_config import to_port_config
 
@@ -105,11 +109,98 @@ def test_cpu_tensors_take_the_plain_network():
     assert sort_bitonic.bitonic_sort_batched.launches == before
     want = bitonic_sort_stable(keys, (p1, p2))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    with pytest.raises(ValueError, match="CUDA"):
-        sort_bitonic.bitonic_sort_kernel(keys, p1, p2)
+    for kernel in (sort_bitonic.bitonic_sort_kernel,
+                   sort_bitonic.radix_sort_kernel,
+                   sort_bitonic.bitonic_network_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel(keys, p1, p2)
+    assert sort_bitonic.bitonic_network_kernel.launches == 0
     with pytest.raises(ValueError, match="power-of-two"):
         sort_bitonic.bitonic_sort_batched(keys[:, :200], p1[:, :200],
                                           p2[:, :200])
+
+
+# chip_smoke.sort_cases' kinds and the digit passes each needs
+PASSES = {"equal": 0, "ties": 1, "wide": 2, "voxel": 3, "negative": 4}
+
+
+@pytest.fixture(scope="module")
+def radix_rows():
+    """chip_smoke.sort_cases at n = 2,048 (B=2) and JAX K4 (interpret
+    mode) on each kind's rows."""
+    out = {}
+    for kind, (keys, p1, p2) in chip_smoke.sort_cases(
+            np.random.RandomState(5), 2, 2048).items():
+        pallas = jax.vmap(lambda k, a, b: bitonic_sort_pallas(
+            k, (a, b), interpret=True))(keys, p1, p2)
+        out[kind] = ((keys, p1, p2), [np.asarray(x) for x in pallas])
+    return out
+
+
+@pytest.mark.parametrize("kind", list(PASSES))
+def test_radix_twin_matches_jax_kernel_and_torch_sort(radix_rows, kind):
+    """The radix twin (what the wrapper runs on CPU tensors) bit-equal to
+    JAX's K4 in interpret mode and to torch.sort(stable=True) + gathers,
+    on keys that need 0 to 4 digit passes."""
+    (keys, p1, p2), pallas = radix_rows[kind]
+    args = [torch.from_numpy(a) for a in (keys, p1, p2)]
+    got = radix_sort_stable(args[0], args[1:])
+    skey, order = torch.sort(args[0], dim=-1, stable=True)
+    lib = (skey, torch.gather(args[1], -1, order),
+           torch.gather(args[2], -1, order))
+    for g, pa, w in zip(got, pallas, lib):
+        np.testing.assert_array_equal(g.numpy(), pa)
+        assert torch.equal(g, w)
+    plain = sort_bitonic.bitonic_sort_batched(*args)
+    assert all(torch.equal(g, p) for g, p in zip(got, plain))
+
+
+@pytest.mark.parametrize("kind", list(PASSES))
+def test_radix_pass_plan(kind):
+    """The min/max plan sorts only the 8-bit digits at or below the
+    highest bit that varies: 0 passes for equal keys, 1 inside a byte, 2
+    for [0, 4096), 3 for voxel ids below 2**24, 4 across the int32 range;
+    each row of a batch has its own plan."""
+    keys = chip_smoke.sort_cases(np.random.RandomState(6), 3, 512)[kind][0]
+    flipped = keys.astype(np.int64) + 2 ** 31
+    for row in flipped:
+        plan = radix_pass_plan(int(row.min()), int(row.max()))
+        assert plan == [8 * p for p in range(PASSES[kind])]
+    assert radix_pass_plan(0, 2 ** 32 - 1) == [0, 8, 16, 24]
+    assert radix_pass_plan(256, 511) == [0]
+    assert radix_pass_plan(255, 256) == [0, 8]
+
+
+def test_radix_twin_sorts_rows_of_any_length_and_rank():
+    """Rows are sorted independently, with leading dims of any rank and
+    lengths that are not powers of two (the twin itself needs none)."""
+    rng = np.random.RandomState(7)
+    keys = rng.randint(-50, 50, (2, 3, 77)).astype(np.int32)
+    keys[1, 2] = 9                              # one row of equal keys
+    pay = rng.rand(2, 3, 77).astype(np.float32)
+    k, p = radix_sort_stable(torch.from_numpy(keys), (torch.from_numpy(pay),))
+    order = np.argsort(keys, axis=-1, kind="stable")
+    np.testing.assert_array_equal(k.numpy(),
+                                  np.take_along_axis(keys, order, -1))
+    np.testing.assert_array_equal(p.numpy(),
+                                  np.take_along_axis(pay, order, -1))
+
+
+@pytest.mark.parametrize("n,kernel", [(256, "radix"), (65536, "radix"),
+                                      (131072, "network")])
+def test_sort_kernel_is_chosen_by_row_length(monkeypatch, n, kernel):
+    """Rows of at most RADIX_CAPACITY (65,536) go to the cluster radix
+    kernel, longer ones to the bitonic network: a rule on the shape."""
+    calls = []
+    for name in ("radix", "network"):
+        attr = "radix_sort_kernel" if name == "radix" \
+            else "bitonic_network_kernel"
+        monkeypatch.setattr(sort_bitonic, attr,
+                            lambda *a, name=name: calls.append(name))
+    key = torch.zeros(1, n, dtype=torch.int32)
+    sort_bitonic.bitonic_sort_kernel(key, key.float(), key.float())
+    assert calls == [kernel]
+    assert sort_bitonic.RADIX_CAPACITY == 65536
 
 
 def _with(cfg, **pipeline):
