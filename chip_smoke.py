@@ -7,7 +7,9 @@ hand-written kernels against its plain PyTorch version:
 
   * serving, hwc: ``MV3D.predict_from_points`` (lidar -> 3D boxes, 30
     proposals per frame) in the standard view layout, through the fused
-    voxelizer sweep kernel (``voxelize_sweep``, K1);
+    voxelizer sweep kernel (``voxelize_sweep``, K1: points binned by
+    output tile, tiles swept in shared memory by persistent blocks and
+    stored by asynchronous bulk copies);
   * serving, s2d2p: the same entry point in the JAX package's own serving
     configuration (``bench.py``: lane-padded folded view ``s2d2p`` in
     bf16, split conv stem, matmul ROI-align;
@@ -26,23 +28,28 @@ hand-written kernels against its plain PyTorch version:
     points with the stable sort kernel (``sort_radix``, K4: a radix sort,
     one thread-block cluster per frame, one launch) ahead of K1; the same
     configuration in process on uncropped sweeps of 131,072 points, longer
-    than a cluster holds, sorts them with the bitonic network kernel
-    (``sort_bitonic``), which the sort's wrapper picks by row length.
+    than a cluster holds, sorts them as blocks of 65,536 in one radix
+    launch and merges the runs stably (``sort_merge``, one launch per
+    doubling), which the sort's wrapper picks by row length.
 
 Phases:
 
   1. require CUDA; print the card's name and power limit;
   2. build the five kernels from this checkout's sources (one nvcc each,
      in parallel); print ptxas's registers, spills and shared memory of
-     the K2 and K4 kernels;
+     the K1, K2, K4 and merge kernels, K1's tile plan and how many radix
+     clusters the card holds at once (cudaOccupancyMaxActiveClusters);
   3. hold each kernel against its plain version at its path's shapes (B=2,
-     65,536 points per frame, K2 with f32 and bf16 heights): bit-equal on
-     the card and against the CPU; K2 also on skewed clouds (all points in
-     one tile, all in one cell, in the last partial tile, in pad lanes);
+     65,536 points per frame, K1 and K2 with f32 and bf16 heights):
+     bit-equal on the card and against the CPU; K1 and K2 also on skewed
+     clouds (all points in one tile, all in one cell, in the last partial
+     tile, padding or pad lanes) at the KITTI width and at a small grid;
      K4 also against ``torch.sort(stable=True)`` + gathers, at n = 256,
-     2,048, 8,192, 65,536 (radix) and 131,072 (bitonic) on keys that need
-     0 to 4 digit passes, and K1 on K4's output against K1 on the unsorted
-     points; then, on the card, the s2d2p pair and the s2d2 view
+     2,048, 8,192, 65,536 (radix) and 131,072 and 262,144 (radix blocks +
+     1 or 2 merge passes) on keys that need 0 to 4 digit passes and ties
+     across runs, one merge pass alone against its plain twin, and K1 on
+     K4's output against K1 on the unsorted points (at 65,536 and 131,072
+     points); then, on the card, the s2d2p pair and the s2d2 view
      equal the folded hwc view bit for bit (K2 against K1) and their
      unfolded occupancy the hwc occupancy;
   4. serve three requests (B=2, distinct clouds) in each in-process
@@ -56,7 +63,8 @@ Phases:
      ``ServingModel.predict_batch`` and to the same weights at
      ``voxel_order="sort"``; a quantized artifact answers one request as
      its in-process call does; two in-process requests of 131,072 points
-     per frame at "pallas-sort" run the bitonic kernel and K1 once each;
+     per frame at "pallas-sort" run the radix kernel, one merge pass and
+     K1 once each;
   5. train at B=2 from an in-memory synthetic drive (raw-size clouds with
      3-8 planted gt cars per frame): 5 steps of ``top_view_rpn``, then 5
      of all subnets; check finite losses, one heights-kernel launch per
@@ -67,8 +75,13 @@ Phases:
   6. time each kernel against its plain version and the one PyTorch call
      that computes the same function, where there is one (CUDA events, the
      wrapper included), at B=1, 2 and 8, beside the kernel's device time
-     alone (the sum of the card's kernel intervals in a torch.profiler
-     trace of the same calls); each in-process serving configuration at
+     alone (CUDA events over calls enqueued behind a spin kernel, so they
+     run back to back without the host); K1 (f32 and bf16 heights) and
+     K4 on rows of 131,072 at B=1, 2 and 8 also by kernel (a
+     torch.profiler trace) and on the host per call
+     (``time.perf_counter`` over 200 calls without a synchronize), and
+     where the host's time of a K1 call goes at B=1;
+     each in-process serving configuration at
      B=1 and B=8
      (closed loop, three windows of SERVE_WINDOW_S seconds after a warm-up
      window of SERVE_WARMUP_S seconds: per window frames/s and the median
@@ -96,9 +109,10 @@ are removed. Run from the repository root:
     python3 chip_smoke.py [--profile DIR]
 
 ``make_cloud``, ``SynthDrive``, ``small_reference``,
-``small_train_reference``, ``sort_cases``, ``check_sort``,
-``check_sort_then_sweep``, ``padded_cases`` and ``check_padded_cases`` are
-shared with the port's tests.
+``small_train_reference``, ``sort_cases``, ``merge_passes``,
+``check_sort``, ``check_sort_then_sweep``, ``sweep_cases``,
+``check_sweep``, ``check_sweep_cases``, ``padded_cases`` and
+``check_padded_cases`` are shared with the port's tests.
 """
 
 import argparse
@@ -634,14 +648,19 @@ def kernel_bounds(b, n_points, n_cells, zn, n_sc):
     """Least card time (ms) of each kernel's work at batch ``b``: its bytes
     (each input read once, each output written once) over the HBM rate;
     the work is a few integer ops per byte, far below the card's peak
-    rate, so bytes bound both. K2 at the serving path's bf16 heights
-    (``voxelize_padded``) and with f32 heights (``voxelize_padded_f32``).
-    K4 (``sort_radix``) reads and writes an i32 key and two f32 payloads
-    per point; the bitonic kernel (``sort_bitonic``) the same for rows of
-    ``2 * n_points``, the length it is timed at. Neither bound counts the
-    digit passes or network stages, which no sort can reach."""
+    rate, so bytes bound both. K1 at f32 heights (``voxelize_sweep``) and
+    at bf16 heights (``voxelize_sweep_bf16``); K2 at the serving path's
+    bf16 heights (``voxelize_padded``) and with f32 heights
+    (``voxelize_padded_f32``). K4 (``sort_radix``) reads and writes an
+    i32 key and two f32 payloads per point; on rows of ``2 * n_points``,
+    the length the long-row route is timed at, a whole sort and one merge
+    pass alike move the row once each way (``sort_merge``). No bound
+    counts the digit passes or merges, which no sort can reach."""
     n_flat = n_cells * zn
-    sweep_bytes = b * (n_points * 12 + n_flat * 4 + n_cells * 8)
+
+    def sweep_bytes(h_bytes):
+        return b * (n_points * 12 + n_flat * h_bytes + n_cells * 8)
+
     heights_bytes = b * (n_points * 8 + n_flat * 4)
     sort_bytes = b * n_points * 12 * 2
 
@@ -649,31 +668,153 @@ def kernel_bounds(b, n_points, n_cells, zn, n_sc):
         return b * (n_points * 12 + n_sc * 128 * h_bytes + n_sc * 4 * 8)
 
     return {name: nbytes / HBM_BYTES_PER_S * 1e3 for name, nbytes in (
-        ("voxelize_sweep", sweep_bytes), ("voxelize_heights", heights_bytes),
+        ("voxelize_sweep", sweep_bytes(4)),
+        ("voxelize_sweep_bf16", sweep_bytes(2)),
+        ("voxelize_heights", heights_bytes),
         ("voxelize_padded", padded_bytes(2)),
         ("voxelize_padded_f32", padded_bytes(4)),
-        ("sort_radix", sort_bytes), ("sort_bitonic", 2 * sort_bytes))}
+        ("sort_radix", sort_bytes), ("sort_merge", 2 * sort_bytes))}
 
 
-def device_ms(fn, iters: int = 50) -> float:
-    """Device time per call of ``fn`` in ms: the sum of the card's kernel
-    (and memset) intervals in a torch.profiler trace of ``iters`` calls,
-    after warm-up; the host's share of a call is not in it."""
+def device_ms(fn, iters: int = 50):
+    """Device time per call of ``fn`` in ms, the host's share left out:
+    a spin kernel (``torch.cuda._sleep``) holds the stream while ``iters``
+    calls are enqueued behind it, so they run back to back; CUDA events
+    time them from the spin's end. The spin is made longer than the
+    enqueue (measured first), and the run is taken again with a longer
+    spin, up to three times, while the host took longer than the spin;
+    None (not measured) after that."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 5 * iters
+    torch.cuda.synchronize()
+    spin_ms = 2 * enqueue_ms + 5.0
+    for _ in range(3):
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < spin_ms:
+            return start.elapsed_time(end) / iters
+        spin_ms *= 4
+    return None
+
+
+def kernel_split(fn, iters: int = 50) -> dict:
+    """{kernel name: device ms per call} of ``fn`` from torch.profiler:
+    the trace with the most device records of three (the profiler now
+    and then drops some or all of a short trace's records), or {} where
+    even that one lost some (a count that is no whole multiple of
+    ``iters``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type.name == "CUDA")
-    if not us:
-        raise AssertionError("the profiler recorded no device activity")
-    return us / 1e3 / iters
+    best = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name.replace("(anonymous namespace)::", "").split("(")[0],
+                  e.time_range.end - e.time_range.start)
+                 for e in prof.events() if e.device_type.name == "CUDA"]
+        if len(spans) > len(best):
+            best = spans
+    if not best or len(best) % iters:
+        return {}
+    per = {}
+    for name, us in best:
+        per[name] = per.get(name, 0.0) + us / 1e3 / iters
+    return per
+
+
+def us_text(ms) -> str:
+    """A time in ms as us, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms * 1e3:.1f} us"
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` in us: ``time.perf_counter`` over
+    ``iters`` calls without a synchronize (what the calling thread pays
+    to enqueue), after warm-up."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def host_breakdown(inputs, n_cells, zn, card):
+    """Where the host's time of one K1 call goes at B=1 (``host_us`` of
+    each piece): the whole wrapper; its input checks and ``contiguous``;
+    the four ``torch.empty``; entering and leaving ``torch.cuda.device``
+    (skipped where the device is current); the stream looked up through
+    ``torch.cuda.current_stream`` and through the raw handle the wrapper
+    uses; the ctypes call and its five enqueued operations are the rest."""
+    import torch
+    from mv3d_tpu_torch.ops import cuda_build
+    from mv3d_tpu_torch.ops import voxelize_sweep as sweep
+    f, v, r = inputs
+    dev = f.device
+    bsz, n = f.shape
+    tile, n_tiles, _ = sweep.tile_plan(bsz * n_cells, zn)
+
+    def allocs():
+        return (torch.empty(bsz, n_cells * zn, device=dev),
+                torch.empty(bsz, n_cells, device=dev),
+                torch.empty(bsz, n_cells, device=dev),
+                torch.empty(2 * n_tiles + 1 + 2 * bsz * n,
+                            dtype=torch.int32, device=dev))
+
+    def checks():
+        sweep.check_inputs(f, v, r)
+        return [t.contiguous() for t in (f, v, r)]
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {"whole call": host_us(lambda: sweep.scatter_top_fused_kernel(
+                 f, v, r, n_cells, zn)),
+             "checks + contiguous": host_us(checks),
+             "4 x torch.empty": host_us(allocs),
+             "torch.cuda.device context": host_us(context),
+             "torch.cuda.current_stream": host_us(
+                 lambda: torch.cuda.current_stream(dev).cuda_stream),
+             "raw stream handle": host_us(
+                 lambda: cuda_build._raw_stream(dev.index or 0))
+             if cuda_build._raw_stream is not None else 0.0}
+    rest = parts["whole call"] - sum(
+        parts[k] for k in ("checks + contiguous", "4 x torch.empty",
+                           "raw stream handle"))
+    log("phase timing: voxelize_sweep B=1 host time per call (us): "
+        + ", ".join(f"{k} {t:.2f}" for k, t in parts.items())
+        + f"; the ctypes call with its enqueues and the rest {rest:.2f} "
+        f"[{card}]")
 
 
 def sort_library(key, p1, p2):
@@ -689,36 +830,47 @@ def sort_cases(rng, b, n):
     digit passes: all equal (0; stability alone decides the order), heavy
     ties in one byte (values in [0, 16): 1), [0, 4096) (2), voxel ids in
     [0, 12,000,000) as the path's (3) and negative with the int32
-    extremes (4); each with two f32 payloads."""
+    extremes (4); and ties across runs (1 pass): the first half of a row
+    from {0, 5, 10}, the second from {5, 10, 15}, so every merge of two
+    runs meets equal keys on both sides. Each with two f32 payloads."""
     import numpy as np
     neg = rng.randint(-1000, 1000, (b, n))
     neg[:, :4] = np.array([-2 ** 31, 2 ** 31 - 1, -1, 0])[:n]
+    runs = 5 * rng.randint(0, 3, (b, n))
+    runs[:, n // 2:] += 5
     keys = {"equal": np.full((b, n), 7), "ties": rng.randint(0, 16, (b, n)),
             "wide": rng.randint(0, 4096, (b, n)),
-            "voxel": rng.randint(0, 12_000_000, (b, n)), "negative": neg}
+            "voxel": rng.randint(0, 12_000_000, (b, n)), "negative": neg,
+            "runs": runs}
     return {kind: (k.astype(np.int32), rng.rand(b, n).astype(np.float32),
                    rng.rand(b, n).astype(np.float32))
             for kind, k in keys.items()}
 
 
+def merge_passes(n):
+    """Merge launches K4 makes for a row of ``n``: 0 up to the radix
+    capacity (65,536), then one per doubling."""
+    return max(0, (n // 65536).bit_length() - 1)
+
+
 def check_sort(key, p1, p2, dev, label):
     """K4 on the card against its plain radix twin on the card and on the
     CPU and against ``sort_library``: sorted keys and payloads bit-equal;
-    one launch of the kernel the row length picks (the cluster radix sort
-    up to ``RADIX_CAPACITY``, the bitonic network above). Takes CPU
+    one radix launch and ``merge_passes(n)`` merge launches. Takes CPU
     arrays or tensors; returns max |kernel - plain| (0)."""
     import torch
     from mv3d_tpu_torch.ops import sort_bitonic as sb
     cpu = [torch.as_tensor(x) for x in (key, p1, p2)]
     want = sb.bitonic_sort_plain(*cpu)
     args = [x.to(dev) for x in cpu]
-    counter = (sb.bitonic_sort_batched
-               if cpu[0].shape[1] <= sb.RADIX_CAPACITY
-               else sb.bitonic_network_kernel)
-    before = counter.launches
+    before = (sb.bitonic_sort_batched.launches,
+              sb.merge_pass_kernel.launches)
     got = sb.bitonic_sort_kernel(*args)
-    if counter.launches != before + 1:
-        raise AssertionError(f"sort kernel: the wrong kernel ran ({label})")
+    ran = (sb.bitonic_sort_batched.launches - before[0],
+           sb.merge_pass_kernel.launches - before[1])
+    if ran != (1, merge_passes(cpu[0].shape[1])):
+        raise AssertionError(f"sort kernel: radix and merge launches {ran} "
+                             f"({label})")
     plain = sb.bitonic_sort_plain(*args)
     lib = sort_library(*args)
     torch.cuda.synchronize()
@@ -729,6 +881,81 @@ def check_sort(key, p1, p2, dev, label):
                                  f"twin or torch.sort ({label})")
     return max((g.double() - p.double()).abs().max().item()
                for g, p in zip(got, plain))
+
+
+def sweep_cases(rng, b, n, n_cells, zn):
+    """K1's skewed inputs, (B, n) int32 ``flat`` and f32 ``hval``/``refl``
+    over ``n_cells`` cells of ``zn`` slices: every frame's points in one
+    tile's span of cells (the second of the kernel's plan), all in one
+    cell (qz ties, decided by the lowest index), all in the frame's last
+    cells (the batch's last tile is partial where B * n_cells is no
+    multiple of the tile) with a tenth of them padding, and all padding.
+    Values lie in [0, 1), with many ties, as the quantizer's do."""
+    import numpy as np
+    from mv3d_tpu_torch.ops.voxelize_sweep import tile_plan
+    tile = tile_plan(b * n_cells, zn)[0]
+    n_flat = n_cells * zn
+
+    def vals():
+        return rng.choice(np.float32([0.0, 1e-3, 0.25, 0.5, 0.75]), (b, n))
+
+    def cells_in(lo, hi):
+        lo, hi = min(lo, n_cells - 1), min(hi, n_cells)
+        return rng.randint(lo, max(hi, lo + 1), (b, n)) * zn \
+            + rng.randint(0, zn, (b, n))
+
+    tail = cells_in(n_cells - tile // 2, n_cells)
+    tail[:, ::10] = n_flat + rng.randint(0, 1000, (b, (n + 9) // 10))
+    cases = {
+        "one tile": (cells_in(tile, 2 * tile), vals()),
+        "one cell": ((n_cells // 2) * zn + rng.randint(0, 3, (b, n)),
+                     rng.choice(np.float32([0.25, 0.5]), (b, n))),
+        "last tile": (tail, vals()),
+        "padding": (n_flat + rng.randint(0, 1000, (b, n)), vals()),
+    }
+    return {kind: (f.astype(np.int32), v.astype(np.float32),
+                   rng.rand(b, n).astype(np.float32))
+            for kind, (f, v) in cases.items()}
+
+
+def check_sweep(cpu, dev, n_cells, zn, label):
+    """K1 on the card against its plain version on the card and on the
+    CPU, heights in f32 and bf16: bit-equal, one launch each. ``cpu`` is
+    (flat, hval, refl) on the CPU. Returns (occupied cells, max |kernel -
+    plain| (0))."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize_sweep as sweep
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        want = sweep.scatter_top_fused_plain(*cpu, n_cells, zn, dtype)
+        args = (*(x.to(dev) for x in cpu), n_cells, zn, dtype)
+        before = sweep.scatter_top_fused_batched.launches
+        got = sweep.scatter_top_fused_kernel(*args)
+        if sweep.scatter_top_fused_batched.launches != before + 1:
+            raise AssertionError(f"sweep kernel: no launch counted ({label})")
+        plain = sweep.scatter_top_fused_plain(*args)
+        torch.cuda.synchronize()
+        for name, g, p, w in zip(("heights", "count", "intensity"), got,
+                                 plain, want):
+            if not (g.dtype == p.dtype and torch.equal(g, p)
+                    and torch.equal(g.cpu(), w)):
+                raise AssertionError(f"sweep kernel {name} ({dtype}, "
+                                     f"{label}) differs from its plain "
+                                     f"version")
+            err = max(err, (g.float() - p.float()).abs().max().item())
+    return int((want[1] > 0).sum()), err
+
+
+def check_sweep_cases(rng, dev, b, n, n_cells, zn):
+    """K1 on ``sweep_cases`` (``check_sweep``, f32 and bf16 heights).
+    Returns the kinds' occupied cells and the max |kernel - plain| (0)."""
+    import torch
+    occupied, err = {}, 0.0
+    for kind, case in sweep_cases(rng, b, n, n_cells, zn).items():
+        occupied[kind], e = check_sweep(
+            [torch.from_numpy(x) for x in case], dev, n_cells, zn, kind)
+        err = max(err, e)
+    return occupied, err
 
 
 def check_sort_then_sweep(flat, val, refl, n_cells, zn):
@@ -1073,7 +1300,7 @@ def serve_http(rng, cfg, dev, work_dir, counters):
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counters.items()}
     want = {"voxelize_sweep": 3, "voxelize_padded": 0,
-            "voxelize_heights": 0, "sort_radix": 3, "sort_bitonic": 0}
+            "voxelize_heights": 0, "sort_radix": 3, "sort_merge": 0}
     if counts != want:
         raise AssertionError(f"HTTP requests: kernel launches {counts}, "
                              f"expected {want}")
@@ -1201,6 +1428,7 @@ def main(argv=None) -> int:
     from mv3d_tpu_torch.ops import voxelize_heights as vh
     from mv3d_tpu_torch.ops import voxelize_padded as vp
     from mv3d_tpu_torch.ops import voxelize_sweep as sweep
+    from mv3d_tpu_torch.ops.sort import merge_runs_stable
     from mv3d_tpu_torch.train.trainer import MV3D
 
     dev = torch.device("cuda")
@@ -1227,21 +1455,34 @@ def main(argv=None) -> int:
                 "voxelize_padded": vp.scatter_top_padded_batched,
                 "voxelize_heights": vh.scatter_max_batched,
                 "sort_radix": sb.bitonic_sort_batched,
-                "sort_bitonic": sb.bitonic_network_kernel}
+                "sort_merge": sb.merge_pass_kernel}
 
     # -- 2. build the five kernels, one nvcc each, in parallel ------------
     t0 = time.time()
     cuda_build.build_libraries(cuda_build.SOURCES)
     for load in (sweep._library, vp._library, vh._library,
-                 sb._radix_library, sb._library):
+                 sb._radix_library, sb._merge_library):
         load()
     log(f"phase build: voxelize_sweep, voxelize_padded, voxelize_heights, "
-        f"sort_radix and sort_bitonic built in {time.time() - t0:.2f} s")
-    radix_smem = sb._radix_library().mv3d_sort_radix_smem()
-    for src, note in ((vp.SOURCE, f"tile_sweep dynamic shared memory "
-                       f"{vp.tile_plan(n_sc)[2]} B per block"),
-                      (sb.RADIX_SOURCE, f"sort_radix dynamic shared memory "
-                       f"{radix_smem} B per CTA, clusters of 8 CTAs")):
+        f"sort_radix and sort_merge built in {time.time() - t0:.2f} s")
+    radix = sb._radix_library()
+    tile, n_tiles, smem = sweep.tile_plan(2 * n_cells, zn)
+    for src, note in (
+            (sweep.SOURCE, f"tile_sweep: tiles of {tile} cells, {n_tiles} "
+             f"at B=2, {smem} B of dynamic shared memory per block (two "
+             f"tile buffers, f32 and bf16 heights alike); persistent grid "
+             f"of up to 4 blocks, as shared memory allows, on each of "
+             f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+             f"SMs"),
+            (vp.SOURCE, f"tile_sweep dynamic shared memory "
+             f"{vp.tile_plan(n_sc)[2]} B per block"),
+            (sb.RADIX_SOURCE, f"sort_radix dynamic shared memory "
+             f"{radix.mv3d_sort_radix_smem()} B per CTA, clusters of 8 "
+             f"CTAs; cudaOccupancyMaxActiveClusters "
+             f"{radix.mv3d_sort_radix_max_clusters()} (rows of 65,536 in "
+             f"one wave)"),
+            (sb.MERGE_SOURCE, "merge_pass: tiles of 2,048 outputs, 256 "
+             "threads")):
         log(f"phase build: ptxas, {os.path.basename(src)}: "
             + "; ".join(cuda_build.ptxas_report(src)) + f"; {note}")
 
@@ -1256,21 +1497,21 @@ def main(argv=None) -> int:
         return flat, val, torch.where(flat < dump, refl, 0.0)
 
     flat, val, refl = prep(2, torch.device("cpu"))
-    want = sweep.scatter_top_fused_plain(flat, val, refl, n_cells, zn)
-    args = (flat.to(dev), val.to(dev), refl.to(dev), n_cells, zn)
-    got = sweep.scatter_top_fused_kernel(*args)
-    plain = sweep.scatter_top_fused_plain(*args)
-    torch.cuda.synchronize()
-    sweep_err = 0.0
-    for name, g, p, w in zip(("heights", "count", "intensity"), got, plain,
-                             want):
-        if not (torch.equal(g, p) and torch.equal(g.cpu(), w)):
-            raise AssertionError(f"sweep kernel {name} differs from its "
-                                 f"plain version")
-        sweep_err = max(sweep_err, (g - p).abs().max().item())
+    occupied, sweep_err = check_sweep((flat, val, refl), dev, n_cells, zn,
+                                      "path clouds")
     log(f"phase kernel-vs-plain: voxelize_sweep B=2 N={n_pts} "
-        f"heights/count/intensity bit-equal to the plain version on the "
-        f"card and on the CPU (occupied cells {int((want[1] > 0).sum())})")
+        f"heights (f32 and bf16)/count/intensity bit-equal to the plain "
+        f"version on the card and on the CPU (occupied cells {occupied})")
+    for b, n, nc in ((2, n_pts, n_cells), (2, 2048, 1000)):
+        occupied, err = check_sweep_cases(rng, dev, b, n, nc, zn)
+        sweep_err = max(sweep_err, err)
+        plan = sweep.tile_plan(b * nc, zn)
+        log(f"phase kernel-vs-plain: voxelize_sweep B={b} N={n} "
+            f"n_cells={nc} ({plan[1]} tiles of {plan[0]} cells, the last "
+            f"holding {b * nc - (plan[1] - 1) * plan[0]}) on skewed clouds, "
+            f"heights f32 and bf16: bit-equal to the plain version on the "
+            f"card and on the CPU (occupied cells {occupied})")
+    args = (flat.to(dev), val.to(dev), refl.to(dev), n_cells, zn)
     padded_err = check_padded_kernel(rng, cfg, dev, n_pts)
     for b, n, ns in ((2, n_pts, n_sc), (2, 2048, 200)):
         occupied, err = check_padded_cases(rng, dev, b, n, ns, zn)
@@ -1311,21 +1552,43 @@ def main(argv=None) -> int:
         f"plain radix twin on the card and on the CPU and to "
         f"torch.sort(stable=True) + gathers; K1 on the sorted points equals "
         f"K1 on the unsorted ones bit for bit ({occupied} occupied cells)")
-    bitonic_err = 0.0
-    for n in (256, 2048, 8192, n_pts, 2 * n_pts):
+    merge_err = 0.0
+    for n in (256, 2048, 8192, n_pts, 2 * n_pts, 4 * n_pts):
         for kind, case in sort_cases(rng, 2, n).items():
             err = check_sort(*case, dev, f"{kind} n={n}")
             if n > sb.RADIX_CAPACITY:
-                bitonic_err = max(bitonic_err, err)
+                merge_err = max(merge_err, err)
             else:
                 sort_err = max(sort_err, err)
     log(f"phase kernel-vs-plain: sort_radix B=2 at n = 256, 2048, 8192, "
-        f"{n_pts} and sort_bitonic at n = {2 * n_pts} (above the radix "
-        f"capacity {sb.RADIX_CAPACITY}) on keys that need 0-4 digit passes "
-        f"(all equal, ties in [0, 16), [0, 4096), voxel ids, negative with "
-        f"the int32 extremes): bit-equal to the plain twin on the card and "
-        f"on the CPU and to torch.sort, one launch of the kernel the row "
-        f"length picks")
+        f"{n_pts}, and sort_radix blocks + sort_merge at n = {2 * n_pts} "
+        f"and {4 * n_pts} (above the radix capacity {sb.RADIX_CAPACITY}; "
+        f"1 and 2 merge passes) on keys that need 0-4 digit passes (all "
+        f"equal, ties in [0, 16), [0, 4096), voxel ids, negative with the "
+        f"int32 extremes) and ties across runs: bit-equal to the plain "
+        f"radix twin on the card and on the CPU and to torch.sort, one "
+        f"radix launch and one merge launch per pass")
+    long_rows = [torch.cat([x, x.flip(-1)], -1) for x in args[:3]]
+    check_sort(*(x.cpu() for x in long_rows), dev,
+               f"path inputs B=2 N={2 * n_pts}")
+    occupied = check_sort_then_sweep(*long_rows, n_cells, zn)
+    # one merge pass alone, on the path's rows sorted in blocks
+    runs = sb.radix_sort_kernel(*(x.reshape(4, n_pts) for x in long_rows))
+    runs = tuple(x.reshape(2, 2 * n_pts) for x in runs)
+    merged = tuple(torch.empty_like(x) for x in runs)
+
+    def merge_pass():
+        sb.merge_pass_kernel([x.data_ptr() for x in runs], 2, 2 * n_pts,
+                             n_pts, [x.data_ptr() for x in merged], dev)
+
+    merge_pass()
+    for g, w in zip(merged, merge_runs_stable(list(runs), n_pts)):
+        if not torch.equal(g, w):
+            raise AssertionError("a merge pass differs from its plain twin")
+    log(f"phase kernel-vs-plain: sort_radix blocks + sort_merge B=2 "
+        f"N={2 * n_pts} (the path's flat/val/refl, twice): bit-equal as "
+        f"above; K1 on the sorted points equals K1 on the unsorted ones "
+        f"({occupied} occupied cells)")
     pflat, pval, prefl = prep(2, dev, s2d="pad")
     bf16 = torch.bfloat16
     timed = {"voxelize_sweep": (
@@ -1346,11 +1609,10 @@ def main(argv=None) -> int:
                  cuda_ms(lambda: sb.radix_sort_kernel(*args[:3])),
                  cuda_ms(lambda: sb.bitonic_sort_plain(*args[:3]), 20),
                  cuda_ms(lambda: sort_library(*args[:3])))}
-    long_rows = [torch.cat([x, x.flip(-1)], -1) for x in args[:3]]
-    timed["sort_bitonic"] = (
-        cuda_ms(lambda: sb.bitonic_network_kernel(*long_rows)),
-        cuda_ms(lambda: sb.bitonic_sort_plain(*long_rows), 20),
-        cuda_ms(lambda: sort_library(*long_rows)))
+    timed["sort_merge"] = (
+        cuda_ms(merge_pass),
+        cuda_ms(lambda: merge_runs_stable(list(runs), n_pts)),
+        cuda_ms(lambda: sort_library(*runs)))
     device = {"voxelize_sweep": device_ms(
                   lambda: sweep.scatter_top_fused_kernel(*args)),
               "voxelize_padded": device_ms(
@@ -1360,16 +1622,15 @@ def main(argv=None) -> int:
                   lambda: vh.scatter_max_kernel(*hargs)),
               "sort_radix": device_ms(
                   lambda: sb.radix_sort_kernel(*args[:3])),
-              "sort_bitonic": device_ms(
-                  lambda: sb.bitonic_network_kernel(*long_rows))}
+              "sort_merge": device_ms(merge_pass)}
     padded_f32 = (cuda_ms(lambda: vp.scatter_top_padded_kernel(
                       pflat, pval, prefl, n_sc, zn)),
                   cuda_ms(lambda: vp.scatter_top_padded_plain(
                       pflat, pval, prefl, n_sc, zn)),
                   device_ms(lambda: vp.scatter_top_padded_kernel(
                       pflat, pval, prefl, n_sc, zn)))
-    del got, plain, got_h, plain_h, lib_h, lib_idx, pflat, pval, prefl
-    del long_rows
+    del got_h, plain_h, lib_h, lib_idx, pflat, pval, prefl
+    del long_rows, runs, merged
     check_folded_views(rng, pad_cfg, dev, n_pts)
 
     # -- 4. serve three requests through each serving path ----------------
@@ -1382,7 +1643,7 @@ def main(argv=None) -> int:
         model, requests, counters,
         {"voxelize_sweep": 3, "voxelize_padded": 0,
          "voxelize_heights": 0, "sort_radix": 0,
-         "sort_bitonic": 0})["voxelize_sweep"]
+         "sort_merge": 0})["voxelize_sweep"]
     check_top_view_card_vs_cpu(serve_cfg, requests[0][0], dev)
     small_reference(rng, dev)
     pad_model = MV3D(pad_cfg, device=dev, seed=0)
@@ -1390,12 +1651,13 @@ def main(argv=None) -> int:
         pad_model, requests, counters,
         {"voxelize_sweep": 0, "voxelize_padded": 3,
          "voxelize_heights": 0, "sort_radix": 0,
-         "sort_bitonic": 0})["voxelize_padded"]
+         "sort_merge": 0})["voxelize_padded"]
     check_top_view_card_vs_cpu(pad_cfg, requests[0][0], dev)
     small_reference(rng, dev, serving=True)
     http_launches = serve_http(rng, serve_cfg, dev, work_dirs[0],
                                counters)["sort_radix"]
-    # uncropped sweeps longer than a cluster holds: the bitonic kernel
+    # uncropped sweeps longer than a cluster holds: radix blocks, then one
+    # merge pass per request
     long_model = MV3D(dataclasses.replace(serve_cfg, pipeline=dataclasses.
                                           replace(serve_cfg.pipeline,
                                                   voxel_order="pallas-sort")),
@@ -1406,8 +1668,8 @@ def main(argv=None) -> int:
     long_launches = serve_requests(
         long_model, long_requests, counters,
         {"voxelize_sweep": 2, "voxelize_padded": 0,
-         "voxelize_heights": 0, "sort_radix": 0,
-         "sort_bitonic": 2})["sort_bitonic"]
+         "voxelize_heights": 0, "sort_radix": 2,
+         "sort_merge": 2})["sort_merge"]
     del long_model, long_requests
 
     # -- 5. train at full width, then a small step against the CPU -------
@@ -1421,17 +1683,19 @@ def main(argv=None) -> int:
               for b in (1, 2, 8)}
     for name, (k_ms, p_ms, l_ms) in timed.items():
         log(f"phase timing: {name} B=2"
-            + (f" n={2 * n_pts}" if name == "sort_bitonic" else "")
+            + (f" n={2 * n_pts}, one pass of runs of {n_pts}"
+               if name == "sort_merge" else "")
             + f": kernel {k_ms * 1e3:.1f} us with the wrapper, "
-            f"{device[name] * 1e3:.1f} us on the device; plain "
+            f"{us_text(device[name])} on the device; plain "
             f"{p_ms * 1e3:.1f} us, library call "
             + (f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none")
             + f", bound {bounds[2][name] * 1e3:.1f} us"
             + (" (bf16 heights)" if name == "voxelize_padded" else "")
+            + (" (f32 heights)" if name == "voxelize_sweep" else "")
             + f" [{card}]")
     log(f"phase timing: voxelize_padded B=2 f32 heights: kernel "
         f"{padded_f32[0] * 1e3:.1f} us with the wrapper, "
-        f"{padded_f32[2] * 1e3:.1f} us on the device; plain "
+        f"{us_text(padded_f32[2])} on the device; plain "
         f"{padded_f32[1] * 1e3:.1f} us, bound "
         f"{bounds[2]['voxelize_padded_f32'] * 1e3:.1f} us [{card}]")
 
@@ -1441,24 +1705,17 @@ def main(argv=None) -> int:
 
     def us(pair):
         return (f"kernel {pair[0] * 1e3:.1f} us with the wrapper, "
-                f"{pair[1] * 1e3:.1f} us on the device")
+                f"{us_text(pair[1])} on the device")
 
     for b in (1, 8):
         f, v, r = prep(b, dev)
         idx = torch.where(f < n_flat, f.long() + torch.arange(
             b, device=dev)[:, None] * n_flat, b * n_flat).reshape(-1)
-        k1 = both(lambda: sweep.scatter_top_fused_kernel(f, v, r, n_cells,
-                                                         zn))
-        p1 = cuda_ms(lambda: sweep.scatter_top_fused_plain(f, v, r, n_cells,
-                                                          zn))
         k3 = both(lambda: vh.scatter_max_kernel(f, v, n_flat))
         p3, l3 = (cuda_ms(lambda: vh.scatter_max_plain(f, v, n_flat)),
                   cuda_ms(lambda: torch.zeros(
                       b * n_flat + 1, device=dev).scatter_reduce_(
                           0, idx, v.reshape(-1), "amax")))
-        log(f"phase timing: voxelize_sweep B={b}: {us(k1)}; plain "
-            f"{p1 * 1e3:.1f} us, bound "
-            f"{bounds[b]['voxelize_sweep'] * 1e3:.1f} us [{card}]")
         log(f"phase timing: voxelize_heights B={b}: {us(k3)}; plain "
             f"{p3 * 1e3:.1f} us, scatter_reduce_ {l3 * 1e3:.1f} us, bound "
             f"{bounds[b]['voxelize_heights'] * 1e3:.1f} us [{card}]")
@@ -1479,6 +1736,49 @@ def main(argv=None) -> int:
             f"plain {p2 * 1e3:.1f} us, bound "
             f"{bounds[b]['voxelize_padded'] * 1e3:.1f} us [{card}]")
         del f, v, r
+
+    def split(fn):
+        """The device time of ``fn`` by kernel, largest first, in us per
+        call (``kernel_split``)."""
+        parts = kernel_split(fn)
+        return "by kernel: " + (", ".join(
+            f"{k} {v * 1e3:.1f}"
+            for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
+            or "not measured")
+
+    # K1 in f32 and bf16 and K4's long rows at B = 1, 2, 8: with the
+    # wrapper, on the device (by kernel) and on the host per call
+    for b in (1, 2, 8):
+        f, v, r = prep(b, dev)
+        for dtype in (torch.float32, bf16):
+            def k1(dtype=dtype):
+                return sweep.scatter_top_fused_kernel(f, v, r, n_cells, zn,
+                                                      dtype)
+            h_us, k_ms, d_ms = host_us(k1), cuda_ms(k1), device_ms(k1)
+            p_ms = cuda_ms(lambda: sweep.scatter_top_fused_plain(
+                f, v, r, n_cells, zn, dtype), 20)
+            name = ("voxelize_sweep" if dtype == torch.float32
+                    else "voxelize_sweep_bf16")
+            log(f"phase timing: voxelize_sweep B={b} {str(dtype)[6:]} "
+                f"heights: kernel {k_ms * 1e3:.1f} us with the wrapper, "
+                f"{us_text(d_ms)} on the device ({split(k1)}), "
+                f"{h_us:.1f} us on the host per call; plain "
+                f"{p_ms * 1e3:.1f} us, bound {bounds[b][name] * 1e3:.1f} us "
+                f"[{card}]")
+        rows = [torch.cat([x, x.flip(-1)], -1) for x in (f, v, r)]
+        h_us = host_us(lambda: sb.bitonic_sort_kernel(*rows))
+        k_ms = cuda_ms(lambda: sb.bitonic_sort_kernel(*rows))
+        d_ms = device_ms(lambda: sb.bitonic_sort_kernel(*rows))
+        log(f"phase timing: sort_radix blocks + sort_merge B={b} "
+            f"n={2 * n_pts}: kernels {k_ms * 1e3:.1f} us with the wrapper, "
+            f"{us_text(d_ms)} on the device "
+            f"({split(lambda: sb.bitonic_sort_kernel(*rows))}), "
+            f"{h_us:.1f} us on the host per call; torch.sort + gathers "
+            f"{cuda_ms(lambda: sort_library(*rows)) * 1e3:.1f} us, plain "
+            f"{cuda_ms(lambda: sb.bitonic_sort_plain(*rows), 10) * 1e3:.1f}"
+            f" us, bound {bounds[b]['sort_merge'] * 1e3:.1f} us [{card}]")
+        del f, v, r, rows
+    host_breakdown(prep(1, dev), n_cells, zn, card)
     for label, m in (("hwc", model), ("s2d2p", pad_model)):
         serve_timing(m, label, rng, cfg, dev, n_pts, opts.profile, card)
     del model, pad_model
@@ -1528,10 +1828,10 @@ def main(argv=None) -> int:
                   source="mv3d_tpu_torch/csrc/sort_radix.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",
                   launches=http_launches, max_abs_err=sort_err),
-              "sort_bitonic": dict(
-                  source="mv3d_tpu_torch/csrc/sort_bitonic.cu",
+              "sort_merge": dict(
+                  source="mv3d_tpu_torch/csrc/sort_merge.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",
-                  launches=long_launches, max_abs_err=bitonic_err)}
+                  launches=long_launches, max_abs_err=merge_err)}
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", **rec, ms=timed[name][0],

@@ -12,8 +12,8 @@
 //                row, rows on gridDim.y, one launch per call. CTA r owns
 //                the row's slice [r*m, (r+1)*m), m = n / 8: 1024 threads x
 //                8 elements, so a cluster holds at most 65,536 elements
-//                (kCapacity). The wrapper sends longer rows to the bitonic
-//                kernel (sort_bitonic.cu).
+//                (kCapacity). The wrapper sorts longer rows as blocks of
+//                kCapacity here, then merges them (sort_merge.cu).
 //   buffers      each CTA keeps its slice of (key, p1, p2) in shared
 //                memory, 12 B an element, twice: the row buffer, in row
 //                order, and a stage, grouped by the pass's digit; 192 KiB
@@ -48,7 +48,7 @@
 // for one 65,536 row) is far below the latency of the work: the launch,
 // the global load and store of the row, and per pass two cluster barriers
 // and a DSMEM copy of the row. The design keeps the row on chip for all
-// passes and pays one launch per call (the bitonic kernel paid 15), with
+// passes and pays one launch per call (a bitonic network pays 15), with
 // 8 SMs per row, so a batch of B rows runs on 8*B SMs side by side.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
@@ -309,6 +309,35 @@ extern "C" int mv3d_sort_radix_capacity() { return kCapacity; }
 // Dynamic shared memory of each CTA, in bytes.
 extern "C" int mv3d_sort_radix_smem() {
   return static_cast<int>(sizeof(Shared));
+}
+
+// How many 8-CTA clusters of the sort can be resident on the current
+// device at once (cudaOccupancyMaxActiveClusters), or -1 on error: rows
+// beyond it run in a later wave.
+extern "C" int mv3d_sort_radix_max_clusters() {
+  const size_t smem = sizeof(Shared);
+  if (cudaFuncSetAttribute(sort_radix,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess) {
+    return -1;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCluster, 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, sort_radix, &config) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return clusters;
 }
 
 // Sorts `batch` rows of `n` (1 <= n <= kCapacity) (key, p1, p2) triples by

@@ -7,7 +7,8 @@ edited source rebuilds. The kernels' wrappers load their library with
 ctypes (:func:`load_library`) and set the argument types themselves.
 :func:`build_libraries` starts one nvcc per source, all at once, and keeps
 what ptxas reports (registers, spills, static shared memory per kernel)
-beside each library (:func:`ptxas_report`).
+beside each library (:func:`ptxas_report`). :func:`launch` calls a
+C entry point on a device's current stream with little host work.
 """
 
 from __future__ import annotations
@@ -19,14 +20,16 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import List, Sequence
+from typing import Callable, List, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = tuple(os.path.join(CSRC, f) for f in (
     "voxelize_sweep.cu", "voxelize_padded.cu", "voxelize_heights.cu",
-    "sort_radix.cu", "sort_bitonic.cu"))
+    "sort_radix.cu", "sort_merge.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -41,9 +44,14 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where ``source``'s library lives once built."""
-    with open(source, "rb") as f:
-        src = f.read()
+    """Where ``source``'s library lives once built (the hash covers the
+    headers under ``csrc/`` too)."""
+    src = b""
+    for path in [source] + sorted(
+            os.path.join(CSRC, h) for h in os.listdir(CSRC)
+            if h.endswith(".cuh")):
+        with open(path, "rb") as f:
+            src += f.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}_{digest[:16]}.so")
@@ -117,6 +125,25 @@ def load_library(source: str) -> ctypes.CDLL:
     sources = list(SOURCES) if source in SOURCES else [source]
     libs = build_libraries(sources)
     return ctypes.CDLL(libs[sources.index(source)])
+
+
+# the current stream's raw handle without building a torch.cuda.Stream;
+# torch builds for the CPU lack it (and launch nothing)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch(fn: Callable[..., int], device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with ``stream`` the current CUDA stream of
+    ``device``, made the current device for the call only where it is not
+    already; returns what ``fn`` returns (a cudaError_t)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(fn, torch.device("cuda", index), *args)
+    stream = (_raw_stream(index) if _raw_stream is not None
+              else torch.cuda.current_stream(index).cuda_stream)
+    return fn(*args, stream)
 
 
 def check_launch(err: int, what: str) -> None:

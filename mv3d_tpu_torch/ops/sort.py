@@ -14,6 +14,13 @@ hand-written sort kernel does (:mod:`mv3d_tpu_torch.ops.sort_bitonic`, K4;
 planned from each row's min and max (:func:`radix_pass_plan`), and a
 stable reorder by each 8-bit digit, least significant first. It is the
 plain version that the K4 wrapper runs on CPU tensors.
+
+:func:`merge_sort_stable` computes it the way the kernels sort rows longer
+than one radix cluster holds (``csrc/sort_radix.cu`` on blocks, then
+``csrc/sort_merge.cu``): each block of a row sorted alone by
+:func:`radix_sort_stable`, then pairs of sorted runs merged stably
+(:func:`merge_runs_stable`, the left run first on equal keys) until one
+run is left.
 """
 
 from __future__ import annotations
@@ -102,4 +109,54 @@ def radix_sort_stable(key: torch.Tensor, payloads: Sequence[torch.Tensor]
         order = torch.argsort(digit * n + pos, dim=-1)
         flipped = torch.gather(flipped, -1, order)
         arrs = [torch.gather(a, -1, order) for a in arrs]
+    return tuple(a.reshape(*lead, n) for a in arrs)
+
+
+def merge_runs_stable(arrs: Sequence[torch.Tensor], run: int
+                      ) -> List[torch.Tensor]:
+    """One merge pass over (R, n) ``arrs`` (the key first, then payloads)
+    whose rows are sorted runs of ``run`` elements (n a multiple of
+    ``2 * run``): each pair of runs merged stably into one, equal keys
+    taking the left run first, as ``csrc/sort_merge.cu`` merges. An
+    element's place is its place in its run plus the elements of the
+    other run that go before it: smaller keys of the right run for a left
+    element, keys at most its own of the left run for a right one."""
+    r, n = arrs[0].shape
+    if n % (2 * run):
+        raise ValueError(f"rows of {n} are no whole pairs of runs of {run}")
+    pairs = [a.reshape(r, n // (2 * run), 2, run) for a in arrs]
+    left, right = pairs[0][:, :, 0], pairs[0][:, :, 1]
+    own = torch.arange(run, device=left.device)
+    at_left = own + torch.searchsorted(right.contiguous(), left.contiguous())
+    at_right = own + torch.searchsorted(left.contiguous(), right.contiguous(),
+                                        right=True)
+    out = []
+    for a in pairs:
+        merged = torch.empty(r, n // (2 * run), 2 * run, dtype=a.dtype,
+                             device=a.device)
+        merged.scatter_(-1, at_left, a[:, :, 0])
+        merged.scatter_(-1, at_right, a[:, :, 1])
+        out.append(merged.reshape(r, n))
+    return out
+
+
+def merge_sort_stable(key: torch.Tensor, payloads: Sequence[torch.Tensor],
+                      block: int) -> Tuple[torch.Tensor, ...]:
+    """Stable ascending sort of each row of int32 ``key`` ((..., n), n a
+    power-of-two multiple of ``block``), carrying ``payloads`` along, as
+    the kernels sort rows longer than a cluster: every block of ``block``
+    elements sorted by :func:`radix_sort_stable`, then merge passes of
+    doubling run length. Equal to :func:`radix_sort_stable` of the row."""
+    n = key.shape[-1]
+    if n % block or (n // block) & (n // block - 1):
+        raise ValueError(f"rows of {n} are not a power-of-two number of "
+                         f"blocks of {block}")
+    lead = key.shape[:-1]
+    arrs = radix_sort_stable(key.reshape(-1, block),
+                             [p.reshape(-1, block) for p in payloads])
+    arrs = [a.reshape(-1, n) for a in arrs]
+    run = block
+    while run < n:
+        arrs = merge_runs_stable(arrs, run)
+        run *= 2
     return tuple(a.reshape(*lead, n) for a in arrs)

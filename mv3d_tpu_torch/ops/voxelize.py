@@ -286,11 +286,13 @@ def lidar_to_top_batch(points: torch.Tensor, cfg: Config = _default_cfg,
         return (top, _sum_in_order(top)) if return_occ else top
     flat, val, refl = order_points(
         flat, val, torch.where(flat < n_cells * zn, refl, 0.0), cfg)
-    heights, counts, intensity = scatter_top_fused_batched(
-        flat, val, refl, n_cells, zn)
-    density = _density(counts)
+    # heights come in the view dtype (the f32 max rounded once), as the
+    # JAX caller asks for them; the occupancy sums them in that dtype too
     view_dtype = getattr(torch, cfg.pipeline.top_view_dtype)
-    heights2d = heights.reshape(bsz, n_cells, zn).to(view_dtype)
+    heights, counts, intensity = scatter_top_fused_batched(
+        flat, val, refl, n_cells, zn, heights_dtype=view_dtype)
+    density = _density(counts)
+    heights2d = heights.reshape(bsz, n_cells, zn)
     if layout == "s2d2":
         # cells are in folded order: the reshapes assemble the folded view
         h2, w2 = xn // 2, yn // 2

@@ -30,7 +30,7 @@ import os
 
 import torch
 
-from .cuda_build import CSRC, check_launch, load_library
+from .cuda_build import CSRC, check_launch, launch, load_library
 
 SOURCE = os.path.join(CSRC, "voxelize_heights.cu")
 
@@ -67,11 +67,8 @@ def scatter_max_kernel(flat: torch.Tensor, val: torch.Tensor,
     flat, val = flat.contiguous(), val.contiguous()
     bsz, n = flat.shape
     out = torch.empty(bsz, n_flat, dtype=torch.float32, device=flat.device)
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream(flat.device).cuda_stream
-        err = lib.mv3d_voxelize_heights(flat.data_ptr(), val.data_ptr(),
-                                        bsz, n, n_flat, out.data_ptr(),
-                                        stream)
+    err = launch(lib.mv3d_voxelize_heights, flat.device, flat.data_ptr(),
+                 val.data_ptr(), bsz, n, n_flat, out.data_ptr())
     check_launch(err, "voxelize heights")
     scatter_max_batched.launches += 1
     return out

@@ -41,12 +41,11 @@ from typing import Tuple
 
 import torch
 
-from .cuda_build import CSRC, check_launch, load_library
-from .voxelize_sweep import check_inputs, sweep_plain
+from .cuda_build import CSRC, check_launch, launch, load_library
+from .voxelize_sweep import check_heights_dtype, check_inputs, sweep_plain
 
 SOURCE = os.path.join(CSRC, "voxelize_padded.cu")
 LANES = 128          # heights lanes per supercell
-_HEIGHTS_DTYPES = (torch.float32, torch.bfloat16)
 TILE_SC = 64         # supercells per tile of the kernel's sweep
 
 
@@ -59,9 +58,7 @@ def tile_plan(n_sc: int, heights_dtype: torch.dtype = torch.float32
     the f32 max rounded once at the store), its 64-bit winners and its
     int32 counts: 560 bytes per supercell, 35,840 at 64 supercells
     (``mv3d_voxelize_padded_smem`` in the source)."""
-    if heights_dtype not in _HEIGHTS_DTYPES:
-        raise TypeError(f"heights_dtype {heights_dtype}: expected one of "
-                        f"{_HEIGHTS_DTYPES}")
+    check_heights_dtype(heights_dtype)
     if n_sc < 1:
         raise ValueError(f"n_sc={n_sc}: no supercell to tile")
     tile_sc = min(TILE_SC, n_sc)
@@ -89,9 +86,7 @@ def _check_shape(n_sc: int, zn: int, heights_dtype: torch.dtype) -> None:
                          f"got zn={zn}")
     if n_sc * LANES >= 2 ** 31:
         raise ValueError(f"n_sc={n_sc}: flat ids must fit in int32")
-    if heights_dtype not in _HEIGHTS_DTYPES:
-        raise TypeError(f"heights_dtype {heights_dtype}: expected one of "
-                        f"{_HEIGHTS_DTYPES}")
+    check_heights_dtype(heights_dtype)
 
 
 def scatter_top_padded_kernel(flat: torch.Tensor, hval: torch.Tensor,
@@ -121,13 +116,11 @@ def scatter_top_padded_kernel(flat: torch.Tensor, hval: torch.Tensor,
     # int32 scratch
     work = torch.empty(bsz * (2 * n_tiles + 1 + 2 * n), dtype=torch.int32,
                        device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mv3d_voxelize_padded(
-            flat.data_ptr(), hval.data_ptr(), refl.data_ptr(), bsz, n, n_sc,
-            zn, int(heights_dtype == torch.bfloat16), tile_sc,
-            heights.data_ptr(), count.data_ptr(), intensity.data_ptr(),
-            work.data_ptr(), stream)
+    err = launch(lib.mv3d_voxelize_padded, dev, flat.data_ptr(),
+                 hval.data_ptr(), refl.data_ptr(), bsz, n, n_sc, zn,
+                 int(heights_dtype == torch.bfloat16), tile_sc,
+                 heights.data_ptr(), count.data_ptr(), intensity.data_ptr(),
+                 work.data_ptr())
     check_launch(err, "lane-padded voxelize sweep")
     scatter_top_padded_batched.launches += 1
     return heights, count, intensity

@@ -11,17 +11,22 @@ computes, per frame:
     ``qz = s_eff + v``; on ties the lowest original index wins (the
     oracle's ``lexsort``, ``mv3d_tpu/ops/voxelize_ref.py``).
 
-Entries with ``flat >= n_cells*zn`` are padding.
+Entries with ``flat >= n_cells*zn`` are padding. Heights come in f32 or
+bf16 (``heights_dtype``, as the JAX function takes it); bf16 is the f32
+max rounded once (round-to-nearest is monotone, so it commutes with max).
 
-The kernel (``mv3d_tpu_torch/csrc/voxelize_sweep.cu``) replaces the TPU's
-sort + tiled sweep with global atomics: a point pass (int-bits atomicMax for
+The kernel (``mv3d_tpu_torch/csrc/voxelize_sweep.cu``) bins the points by
+output tile (a counting sort: histogram and ranks, scan, placement) over
+the batch's cells taken as one array, and sweeps the tiles with persistent
+blocks: each tile is accumulated in shared memory (int-bits atomicMax for
 heights, atomicAdd for count, a 64-bit atomicMax on a packed (qz, ~index)
-key for the winner) and a cell pass (count to f32, winner's reflectance).
-Max and integer add are order-independent, so it is bit-exact and
-deterministic. What bounds it on an H100 is zero-filling and writing the
-48 MB heights volume per frame against ~65k scattered atomics; fusing the
-view assembly (``mv3d_tpu/ops/voxelize.py`` lidar_to_top_batch's concat)
-into the cell pass is later performance work.
+key for the winner), and written once by asynchronous bulk copies that
+overlap the next tile's work. :func:`tile_plan` sizes the tiles. Max and
+integer add are order-independent, so it is bit-exact and deterministic.
+What bounds it on an H100 is writing the 48 MB f32 (24 MB bf16) heights
+plane per frame once; fusing the view assembly
+(``mv3d_tpu/ops/voxelize.py`` lidar_to_top_batch's concat) into the sweep
+would change its function beyond the JAX one's.
 
 Dispatch: a tensor on the CPU goes to :func:`scatter_top_fused_plain`; a
 CUDA tensor goes to the kernel, which raises if it cannot be built or
@@ -41,21 +46,59 @@ from typing import Tuple
 
 import torch
 
-from .cuda_build import CSRC, check_launch, load_library
+from .cuda_build import CSRC, check_launch, launch, load_library
 
 SOURCE = os.path.join(CSRC, "voxelize_sweep.cu")
+HEIGHTS_DTYPES = (torch.float32, torch.bfloat16)
+TILE_CELLS = 256     # cells per tile of the kernel's sweep, at most
+SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 
 _KEY_LOW = 0xFFFFFFFF
+
+
+def check_heights_dtype(heights_dtype: torch.dtype) -> None:
+    if heights_dtype not in HEIGHTS_DTYPES:
+        raise TypeError(f"heights_dtype {heights_dtype}: expected one of "
+                        f"{HEIGHTS_DTYPES}")
+
+
+def tile_plan(total_cells: int, zn: int) -> Tuple[int, int, int]:
+    """The kernel's tiles over ``total_cells`` = B * n_cells cells taken
+    as one array: (cells per tile, number of tiles, dynamic shared memory
+    of a sweep block in bytes). Tiles cover the cells in order, the last
+    one possibly partial. A tile is a power of two of at least 8 cells, so
+    every tile starts on a 16-byte boundary of each output (heights in f32
+    or bf16, count, intensity), as bulk copies need. A block holds two
+    tile buffers of f32 heights, 64-bit winners, int32 counts and f32
+    intensity, for f32 and bf16 heights alike (bf16 is rounded in place;
+    ``mv3d_voxelize_sweep_smem`` in the source): 2 * 116 * 256 = 59,392 B
+    at zn = 25, three blocks to an H100 SM. The tile halves from
+    ``TILE_CELLS`` until the block fits in shared memory."""
+    if total_cells < 1 or zn < 1:
+        raise ValueError(f"no cell to tile: {total_cells} cells, zn={zn}")
+    per_cell = zn * 4 + 16
+    tile = TILE_CELLS
+    while 2 * tile * per_cell > SMEM_LIMIT:
+        if tile == 8:
+            raise ValueError(f"zn={zn}: a tile of 8 cells does not fit in "
+                             f"one block's shared memory")
+        tile //= 2
+    return tile, -(-total_cells // tile), 2 * tile * per_cell
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.mv3d_voxelize_sweep
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int32,
-                   p, p, p, p, p, p]
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    fn.argtypes = [p, p, p, i64, i64, i64, i32, i32, i32, p, p, p, p, p]
     fn.restype = ctypes.c_int
+    lib.mv3d_voxelize_sweep_smem.argtypes = [i32, i32]
+    lib.mv3d_voxelize_sweep_smem.restype = i64
+    for zn in (25, 200):
+        tile, _, smem = tile_plan(1, zn)
+        if lib.mv3d_voxelize_sweep_smem(tile, zn) != smem:
+            raise RuntimeError("voxelize_sweep.cu and tile_plan disagree")
     return lib
 
 
@@ -73,29 +116,40 @@ def check_inputs(flat, hval, refl):
 
 
 def scatter_top_fused_kernel(flat: torch.Tensor, hval: torch.Tensor,
-                             refl: torch.Tensor, n_cells: int, zn: int
+                             refl: torch.Tensor, n_cells: int, zn: int,
+                             heights_dtype: torch.dtype = torch.float32
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch the CUDA kernel on CUDA tensors (no fallback)."""
     check_inputs(flat, hval, refl)
+    check_heights_dtype(heights_dtype)
     if flat.device.type != "cuda":
         raise ValueError(f"the sweep kernel needs CUDA tensors, got "
                          f"{flat.device}")
+    bsz, n = flat.shape
+    if 5 * bsz * n >= 2 ** 31 or n_cells * zn >= 2 ** 31 or bsz > 65535:
+        raise ValueError(f"the sweep kernel takes at most 65,535 frames and "
+                         f"indexes points and slots in int32: {bsz} x {n} "
+                         f"points, {n_cells} x {zn} slots")
+    tile, n_tiles, _ = tile_plan(bsz * n_cells, zn)
     lib = _library()
     flat, hval, refl = (t.contiguous() for t in (flat, hval, refl))
-    bsz, n = flat.shape
     dev = flat.device
-    heights = torch.zeros(bsz, n_cells * zn, dtype=torch.float32, device=dev)
+    # the sweep writes every output byte: no fill
+    heights = torch.empty(bsz, n_cells * zn, dtype=heights_dtype,
+                          device=dev)
+    # separate allocations: each plane must start on a 16-byte boundary
     count = torch.empty(bsz, n_cells, dtype=torch.float32, device=dev)
     intensity = torch.empty(bsz, n_cells, dtype=torch.float32, device=dev)
-    cnt = torch.zeros(bsz, n_cells, dtype=torch.int32, device=dev)
-    best = torch.zeros(bsz, n_cells, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mv3d_voxelize_sweep(
-            flat.data_ptr(), hval.data_ptr(), refl.data_ptr(), bsz, n,
-            n_cells, zn, heights.data_ptr(), count.data_ptr(),
-            intensity.data_ptr(), cnt.data_ptr(), best.data_ptr(), stream)
+    # bin histogram and starts, the points' ranks and their four-word
+    # records, in one int32 scratch
+    work = torch.empty(2 * n_tiles + 1 + 5 * bsz * n, dtype=torch.int32,
+                       device=dev)
+    err = launch(lib.mv3d_voxelize_sweep, dev, flat.data_ptr(),
+                 hval.data_ptr(), refl.data_ptr(), bsz, n, n_cells, zn,
+                 int(heights_dtype == torch.bfloat16), tile,
+                 heights.data_ptr(), count.data_ptr(), intensity.data_ptr(),
+                 work.data_ptr())
     check_launch(err, "voxelize sweep")
     scatter_top_fused_batched.launches += 1
     return heights, count, intensity
@@ -138,32 +192,40 @@ def sweep_plain(slot: torch.Tensor, cell: torch.Tensor, s_eff: torch.Tensor,
 
 
 def scatter_top_fused_plain(flat: torch.Tensor, hval: torch.Tensor,
-                            refl: torch.Tensor, n_cells: int, zn: int
+                            refl: torch.Tensor, n_cells: int, zn: int,
+                            heights_dtype: torch.dtype = torch.float32
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The same function in plain PyTorch ops, on any device
-    (:func:`sweep_plain` on ``cell = flat // zn``)."""
+    (:func:`sweep_plain` on ``cell = flat // zn``, heights rounded once to
+    ``heights_dtype``)."""
     check_inputs(flat, hval, refl)
+    check_heights_dtype(heights_dtype)
     n_flat = n_cells * zn
     f = flat.to(torch.int64)
     live = (f >= 0) & (f < n_flat)
     cell = f // zn
-    return sweep_plain(f, cell, f - cell * zn, live, hval, refl, n_flat,
-                       n_cells)
+    heights, count, intensity = sweep_plain(
+        f, cell, f - cell * zn, live, hval, refl, n_flat, n_cells)
+    return heights.to(heights_dtype), count, intensity
 
 
 def scatter_top_fused_batched(flat: torch.Tensor, hval: torch.Tensor,
-                              refl: torch.Tensor, n_cells: int, zn: int
+                              refl: torch.Tensor, n_cells: int, zn: int,
+                              heights_dtype: torch.dtype = torch.float32
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(B, N) int32 ``flat``, f32 ``hval``/``refl`` -> heights
-    (B, n_cells*zn), count (B, n_cells), intensity (B, n_cells), all f32.
+    (B, n_cells*zn) in ``heights_dtype``, count (B, n_cells) and intensity
+    (B, n_cells) in f32.
 
     CPU tensors take the plain version; CUDA tensors take the kernel."""
     if flat.device.type == "cpu":
-        return scatter_top_fused_plain(flat, hval, refl, n_cells, zn)
+        return scatter_top_fused_plain(flat, hval, refl, n_cells, zn,
+                                       heights_dtype)
     if flat.device.type == "cuda":
-        return scatter_top_fused_kernel(flat, hval, refl, n_cells, zn)
+        return scatter_top_fused_kernel(flat, hval, refl, n_cells, zn,
+                                        heights_dtype)
     raise ValueError(f"no voxelizer sweep for device {flat.device}")
 
 

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from chip_smoke import (check_padded_cases, check_sort, check_sort_then_sweep,
-                        make_cloud, serve_http, small_reference,
-                        small_train_reference, sort_cases)
+                        check_sweep, check_sweep_cases, make_cloud,
+                        serve_http, small_reference, small_train_reference,
+                        sort_cases)
 from mv3d_tpu_torch import kitti_config
 from mv3d_tpu_torch.ops import voxelize as tvox
 from mv3d_tpu_torch.ops import (sort_bitonic, voxelize_heights,
@@ -35,26 +36,39 @@ def _cuda():
 
 
 @pytest.mark.cuda
-def test_sweep_kernel_bit_equals_plain_on_card():
-    """The CUDA kernel against its plain version at KITTI shapes (B=2,
-    65,536 points per frame): bit-equal on the card and to the CPU."""
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_sweep_kernel_bit_equals_plain_on_card(b):
+    """The sweep kernel (K1) against its plain version at KITTI shapes
+    (65,536 points per frame), heights in f32 and in bf16: bit-equal on
+    the card and to the CPU, one launch each (``chip_smoke.check_sweep``).
+    """
     dev = _cuda()
-    pts = torch.from_numpy(make_cloud(np.random.RandomState(0), 2, 65536,
+    pts = torch.from_numpy(make_cloud(np.random.RandomState(b), b, 65536,
                                      CFG, tricky=True))
     _, _, flat, val, refl = tvox._top_prep(pts, CFG, None)
     t = CFG.top
     n_cells = t.xn * t.yn
     refl = torch.where(flat < n_cells * t.zn, refl, 0.0)
-    want = voxelize_sweep.scatter_top_fused_plain(flat, val, refl, n_cells,
-                                                  t.zn)
-    args = (flat.to(dev), val.to(dev), refl.to(dev), n_cells, t.zn)
-    before = voxelize_sweep.scatter_top_fused_batched.launches
-    got = voxelize_sweep.scatter_top_fused_batched(*args)
-    plain = voxelize_sweep.scatter_top_fused_plain(*args)
-    torch.cuda.synchronize()
-    assert voxelize_sweep.scatter_top_fused_batched.launches == before + 1
-    for g, p, w in zip(got, plain, want):
-        assert torch.equal(g, p) and torch.equal(g.cpu(), w)
+    occupied, err = check_sweep((flat, val, refl), dev, n_cells, t.zn,
+                                f"B={b}")
+    assert err == 0 and occupied > 1000 * b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,n_cells", [(2, 65536, 481401),
+                                         (8, 65536, 481401),
+                                         (2, 2048, 1000)])
+def test_sweep_kernel_on_skewed_clouds_on_card(b, n, n_cells):
+    """K1 on ``chip_smoke.sweep_cases`` (every frame's points in one tile,
+    all in one cell, in the last cells with padding, all padding),
+    heights in f32 and bf16: bit-equal to its plain version on the card
+    and on the CPU, at the KITTI grid (481,401 cells a frame, tiles that
+    cross frames, a partial last tile) and at 1,000 cells a frame."""
+    dev = _cuda()
+    occupied, err = check_sweep_cases(np.random.RandomState(n_cells), dev,
+                                      b, n, n_cells, CFG.top.zn)
+    assert err == 0 and occupied["one cell"] == b
+    assert occupied["padding"] == 0
 
 
 @pytest.mark.cuda
@@ -137,13 +151,14 @@ def test_training_step_card_matches_cpu(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 2048, 8192, 65536, 131072])
+@pytest.mark.parametrize("n", [256, 2048, 8192, 65536, 131072, 262144])
 def test_sort_kernel_bit_equals_plain_and_torch_sort_on_card(n):
-    """The sort kernel (K4: the cluster radix sort up to 65,536 elements,
-    the bitonic network above) on keys that need 0 to 4 digit passes
-    (B=2): keys and payloads bit-equal to its plain twin on the card and
-    on the CPU and to ``torch.sort(stable=True)`` + gathers, one launch of
-    the kernel the row length picks (``chip_smoke.check_sort``)."""
+    """The sort kernels (K4: the cluster radix sort up to 65,536 elements,
+    radix blocks then stable merge passes above) on keys that need 0 to 4
+    digit passes and on ties across runs (B=2): keys and payloads
+    bit-equal to the plain twin on the card and on the CPU and to
+    ``torch.sort(stable=True)`` + gathers, one radix launch and one merge
+    launch per doubling above 65,536 (``chip_smoke.check_sort``)."""
     dev = _cuda()
     for kind, case in sort_cases(np.random.RandomState(n), 2, n).items():
         assert check_sort(*case, dev, f"{kind} n={n}") == 0
@@ -172,14 +187,14 @@ def test_sort_kernel_on_the_serving_path_inputs():
 def test_http_serving_at_pallas_sort_on_card(tmp_path):
     """The CLI-exported pallas-sort artifact over HTTP at full KITTI width
     (``chip_smoke.serve_http``): K4 (the radix kernel) and K1 once per
-    request, the bitonic kernel never, answers
+    request, the merge kernel never, answers
     bit-equal to in-process calls and to ``voxel_order="sort"``."""
     dev = _cuda()
     counters = {"voxelize_sweep": voxelize_sweep.scatter_top_fused_batched,
                 "voxelize_padded": voxelize_padded.scatter_top_padded_batched,
                 "voxelize_heights": voxelize_heights.scatter_max_batched,
                 "sort_radix": sort_bitonic.bitonic_sort_batched,
-                "sort_bitonic": sort_bitonic.bitonic_network_kernel}
+                "sort_merge": sort_bitonic.merge_pass_kernel}
     counts = serve_http(np.random.RandomState(4), CFG, dev, str(tmp_path),
                         counters)
     assert counts["sort_radix"] == counts["voxelize_sweep"] == 3

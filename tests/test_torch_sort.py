@@ -6,8 +6,9 @@ wrapper runs on CPU tensors, and the port of the jnp bitonic network)
 against the JAX Pallas kernel they replace (``bitonic_sort_pallas`` in
 interpret mode), the JAX pure-jnp network, numpy's stable argsort and
 ``torch.sort(stable=True)``; the radix twin's pass plan on keys that need
-0 to 4 digit passes; the wrapper's choice of kernel by row length; then the
-port's voxelizer at
+0 to 4 digit passes; the plain twin of the long-row route (radix blocks,
+then stable merges) against the same; the wrapper's choice of kernels by
+row length and its launches for long rows; then the port's voxelizer at
 ``voxel_order="pallas-sort"``/``"bitonic"`` against JAX's eager
 ``lidar_to_top_batch`` at ``"pallas-sort"`` (K4, then the fused sweep, both
 in interpret mode). A sort only moves values, so every comparison is
@@ -30,7 +31,8 @@ from mv3d_tpu.ops import voxelize as jvox
 from mv3d_tpu.ops.sort_pallas import bitonic_sort_pallas
 from mv3d_tpu_torch.ops import sort_bitonic
 from mv3d_tpu_torch.ops import voxelize as tvox
-from mv3d_tpu_torch.ops.sort import (bitonic_sort_stable, radix_pass_plan,
+from mv3d_tpu_torch.ops.sort import (bitonic_sort_stable, merge_runs_stable,
+                                     merge_sort_stable, radix_pass_plan,
                                      radix_sort_stable)
 
 from test_torch_config import to_port_config
@@ -111,17 +113,18 @@ def test_cpu_tensors_take_the_plain_network():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     for kernel in (sort_bitonic.bitonic_sort_kernel,
                    sort_bitonic.radix_sort_kernel,
-                   sort_bitonic.bitonic_network_kernel):
+                   sort_bitonic.merge_sort_kernel):
         with pytest.raises(ValueError, match="CUDA"):
             kernel(keys, p1, p2)
-    assert sort_bitonic.bitonic_network_kernel.launches == 0
+    assert sort_bitonic.merge_pass_kernel.launches == 0
     with pytest.raises(ValueError, match="power-of-two"):
         sort_bitonic.bitonic_sort_batched(keys[:, :200], p1[:, :200],
                                           p2[:, :200])
 
 
 # chip_smoke.sort_cases' kinds and the digit passes each needs
-PASSES = {"equal": 0, "ties": 1, "wide": 2, "voxel": 3, "negative": 4}
+PASSES = {"equal": 0, "ties": 1, "wide": 2, "voxel": 3, "negative": 4,
+          "runs": 1}
 
 
 @pytest.fixture(scope="module")
@@ -187,20 +190,97 @@ def test_radix_twin_sorts_rows_of_any_length_and_rank():
 
 
 @pytest.mark.parametrize("n,kernel", [(256, "radix"), (65536, "radix"),
-                                      (131072, "network")])
+                                      (131072, "merge"), (262144, "merge")])
 def test_sort_kernel_is_chosen_by_row_length(monkeypatch, n, kernel):
     """Rows of at most RADIX_CAPACITY (65,536) go to the cluster radix
-    kernel, longer ones to the bitonic network: a rule on the shape."""
+    kernel, longer ones to radix blocks plus merge passes: a rule on the
+    shape."""
     calls = []
-    for name in ("radix", "network"):
-        attr = "radix_sort_kernel" if name == "radix" \
-            else "bitonic_network_kernel"
-        monkeypatch.setattr(sort_bitonic, attr,
+    for name in ("radix", "merge"):
+        monkeypatch.setattr(sort_bitonic, f"{name}_sort_kernel",
                             lambda *a, name=name: calls.append(name))
     key = torch.zeros(1, n, dtype=torch.int32)
     sort_bitonic.bitonic_sort_kernel(key, key.float(), key.float())
     assert calls == [kernel]
     assert sort_bitonic.RADIX_CAPACITY == 65536
+
+
+@pytest.mark.parametrize("n,passes", [(131072, 1), (262144, 2),
+                                      (1048576, 4)])
+def test_long_rows_take_radix_blocks_then_merge_passes(monkeypatch, n,
+                                                       passes):
+    """A row of 65,536 * 2**k is sorted as 2**k radix rows in one launch,
+    then k merge passes of doubling run length, ping-ponging so that the
+    last pass writes the output buffer and not the scratch."""
+    launches = []
+
+    def radix(src, rows, length, dst, device):
+        launches.append(("radix", (rows, length), dst[0]))
+
+    def merge(src, bsz, length, run, dst, device):
+        assert (bsz, length) == (2, n)
+        launches.append(("merge", run, dst[0]))
+
+    monkeypatch.setattr(sort_bitonic, "_cuda_inputs",
+                        lambda *a: tuple(t.contiguous() for t in a))
+    monkeypatch.setattr(sort_bitonic, "_radix_launch", radix)
+    monkeypatch.setattr(sort_bitonic, "merge_pass_kernel", merge)
+    key = torch.zeros(2, n, dtype=torch.int32)
+    out = sort_bitonic.merge_sort_kernel(key, key.float(), key.float())
+    blocks = 2 * n // 65536
+    assert [x[:2] for x in launches] == [("radix", (blocks, 65536))] + [
+        ("merge", 65536 * 2 ** p) for p in range(passes)]
+    assert launches[-1][2] == out[0].data_ptr()
+    writes = [x[2] for x in launches]
+    assert all(a != b for a, b in zip(writes, writes[1:]))
+
+
+@pytest.fixture(scope="module")
+def merge_rows():
+    """chip_smoke.sort_cases at n = 1,024 and 2,048 (B=2) and JAX K4
+    (interpret mode) on each kind's rows."""
+    out = {}
+    for n in (1024, 2048):
+        for kind, (keys, p1, p2) in chip_smoke.sort_cases(
+                np.random.RandomState(n), 2, n).items():
+            pallas = jax.vmap(lambda k, a, b: bitonic_sort_pallas(
+                k, (a, b), interpret=True))(keys, p1, p2)
+            out[n, kind] = ((keys, p1, p2), [np.asarray(x) for x in pallas])
+    return out
+
+
+@pytest.mark.parametrize("kind", list(PASSES))
+@pytest.mark.parametrize("n,block", [(1024, 256), (2048, 512)])
+def test_merge_twin_matches_radix_twin_jax_kernel_and_torch_sort(
+        merge_rows, n, block, kind):
+    """The plain twin of the long-row route (radix blocks of ``block``
+    elements, then two stable merge passes)
+    bit-equal to the radix twin of the whole row, to
+    torch.sort(stable=True) + gathers and to JAX's K4 in interpret mode,
+    on keys that need 0 to 4 digit passes and on ties across runs."""
+    (keys, p1, p2), pallas = merge_rows[n, kind]
+    args = [torch.from_numpy(a) for a in (keys, p1, p2)]
+    got = merge_sort_stable(args[0], args[1:], block)
+    whole = radix_sort_stable(args[0], args[1:])
+    skey, order = torch.sort(args[0], dim=-1, stable=True)
+    lib = (skey, torch.gather(args[1], -1, order),
+           torch.gather(args[2], -1, order))
+    for g, w, l, pa in zip(got, whole, lib, pallas):
+        assert torch.equal(g, w) and torch.equal(g, l)
+        np.testing.assert_array_equal(g.numpy(), pa)
+
+
+def test_merge_pass_takes_the_left_run_first_on_ties():
+    """One merge pass of two sorted runs: equal keys keep the left run's
+    elements (lower original indices) ahead of the right run's, and the
+    payloads follow their keys."""
+    key = torch.tensor([[1, 3, 3, 5, 1, 3, 4, 5]], dtype=torch.int32)
+    pos = torch.arange(8, dtype=torch.float32)[None]
+    k, p = merge_runs_stable([key, pos], 4)
+    assert k.tolist() == [[1, 1, 3, 3, 3, 4, 5, 5]]
+    assert p.tolist() == [[0, 4, 1, 2, 5, 6, 3, 7]]
+    with pytest.raises(ValueError, match="pairs"):
+        merge_runs_stable([key[:, :6]], 4)
 
 
 def _with(cfg, **pipeline):

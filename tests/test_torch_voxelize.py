@@ -18,7 +18,7 @@ import torch
 import chip_smoke
 from mv3d_tpu.config import kitti_config
 from mv3d_tpu.ops import voxelize as jvox
-from mv3d_tpu.ops import voxelize_ref
+from mv3d_tpu.ops import voxelize_pallas, voxelize_ref
 from mv3d_tpu_torch.ops import voxelize as tvox
 from mv3d_tpu_torch.ops import voxelize_heights, voxelize_sweep
 
@@ -27,6 +27,14 @@ from test_torch_config import to_port_config
 torch.set_num_threads(2)
 
 CFG = kitti_config()
+KITTI_ZN = CFG.top.zn
+
+
+def jnp_dtype(dtype):
+    """The JAX dtype of a torch heights dtype."""
+    import jax.numpy as jnp
+    return jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
 SMALL = dataclasses.replace(
     CFG, top=dataclasses.replace(CFG.top, x_max=8.0, y_min=-3.0, y_max=3.0),
     pipeline=dataclasses.replace(CFG.pipeline, use_pallas_fused=True))
@@ -187,6 +195,109 @@ def test_cpu_tensors_take_the_plain_version(rng):
     with pytest.raises(ValueError):
         voxelize_sweep.scatter_top_fused_kernel(
             flat, torch.ones(1, 8), torch.ones(1, 8), 4, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("total_cells", [481401, 2 * 481401, 8 * 481401,
+                                         2000, 100])
+def test_sweep_tile_plan_covers_every_cell(total_cells, dtype):
+    """K1's tiles over the batch's cells taken as one array: consecutive
+    runs of ``tile`` cells that cover [0, total_cells) once, in order, the
+    last one possibly partial (every KITTI batch's is: 481,401 cells a
+    frame); every tile starts on a 16-byte boundary of the heights (f32
+    or bf16, zn = 25), count and intensity planes, as bulk copies need; a
+    sweep block's two tile buffers fit in one H100 block."""
+    zn = 25
+    tile, n_tiles, smem = voxelize_sweep.tile_plan(total_cells, zn)
+    assert tile >= 8 and tile & (tile - 1) == 0
+    assert tile <= voxelize_sweep.TILE_CELLS
+    bounds = [(t * tile, min((t + 1) * tile, total_cells))
+              for t in range(n_tiles)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == total_cells
+    assert all(lo < hi and hi - lo <= tile for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(hi - lo == tile for lo, hi in bounds[:-1])
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for lo, _ in bounds:
+        assert lo * zn * esize % 16 == 0 and lo * 4 % 16 == 0
+    # f32 heights, 64-bit winner, count, intensity; bf16 rounds in place
+    assert smem == 2 * tile * (zn * 4 + 16) <= 232448
+    if total_cells == 481401:     # one KITTI frame: 1,881 tiles of 256
+        assert (tile, n_tiles) == (256, 1881)
+        assert bounds[-1][1] - bounds[-1][0] == 121
+        assert smem == 59392      # three blocks to an H100 SM
+
+
+def test_sweep_tile_plan_shrinks_for_tall_columns():
+    """A tall column of slices halves the tile until two buffers fit;
+    heights come in f32 or bf16 only."""
+    tile, _, smem = voxelize_sweep.tile_plan(10000, 300)
+    assert tile == 64 and smem == 2 * 64 * (300 * 4 + 16) <= 232448
+    flat = torch.zeros(1, 8, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        voxelize_sweep.scatter_top_fused_batched(
+            flat, torch.ones(1, 8), torch.ones(1, 8), 4, 2,
+            heights_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["one tile", "one cell", "last tile",
+                                  "padding"])
+def test_sweep_plain_matches_jax_on_skewed_clouds(kind, dtype):
+    """K1's plain version against JAX's ``scatter_top_fused_batched``
+    (interpret mode) with the same ``heights_dtype``, on
+    ``chip_smoke.sweep_cases`` (B=2 frames of 1,000 cells, so the kernel's
+    last tile holds 208 of 256 cells): every frame's points in one tile's
+    span, all in one cell (qz ties decided by the lowest index), in the
+    last cells with padding beyond n_cells*zn, all padding. Bit-exact in
+    f32 and bf16 (the f32 max rounded once)."""
+    n_cells, zn = 1000, KITTI_ZN
+    flat, hval, refl = chip_smoke.sweep_cases(
+        np.random.RandomState(13), 2, 1024, n_cells, zn)[kind]
+    got = voxelize_sweep.scatter_top_fused_batched(
+        *(torch.from_numpy(x) for x in (flat, hval, refl)), n_cells, zn,
+        heights_dtype=dtype)
+    want = voxelize_pallas.scatter_top_fused_batched(
+        flat, hval, refl, n_cells, zn, interpret=True,
+        heights_dtype=jnp_dtype(dtype))
+    assert got[0].dtype == dtype
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w).astype(np.float32))
+    occupied = int((got[1] > 0).sum())
+    assert occupied == {"one cell": 2, "padding": 0}.get(kind, occupied)
+    assert occupied > 0 or kind == "padding"
+
+
+@pytest.mark.parametrize("thresh", [0.0, 0.5])
+@pytest.mark.parametrize("layout", ["hwc", "s2d2"])
+def test_bf16_view_matches_jax(clouds, layout, thresh):
+    """The hwc and s2d2 views at top_view_dtype="bfloat16" (K1 writes bf16
+    heights, as the JAX caller asks its kernel to) against JAX's eager
+    ``lidar_to_top_batch``: heights and intensity bit-equal, density
+    within 1 bf16 ulp; the occupancy equal at threshold 0 (the count) and
+    within 1e-6 at 0.5, where both sum the bf16 heights."""
+    _, batch, num = clouds
+    cfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
+        SMALL.pipeline, top_view_dtype="bfloat16", view_layout=layout,
+        remove_empty_thresh=thresh))
+    jtop, jocc = (np.asarray(x).astype(np.float32) for x in
+                  jvox.lidar_to_top_batch(batch, cfg, num, return_occ=True))
+    top, occ = tvox.lidar_to_top_batch(
+        torch.from_numpy(batch), to_port_config(cfg), torch.from_numpy(num),
+        return_occ=True)
+    assert top.dtype == torch.bfloat16 and top.shape == jtop.shape
+    top = top.float().numpy()
+    zn = SMALL.top.zn
+    if layout == "hwc":
+        exact, dens = np.s_[..., :zn + 1], np.s_[..., zn + 1]
+    else:
+        exact, dens = np.s_[..., :-4], np.s_[..., -4:]
+    np.testing.assert_array_equal(top[exact], jtop[exact])
+    np.testing.assert_allclose(top[dens], jtop[dens], rtol=2 ** -8, atol=0)
+    np.testing.assert_allclose(occ.numpy(), jocc, rtol=1e-6, atol=1e-6)
+    if thresh == 0.0:
+        np.testing.assert_array_equal(occ.numpy(), jocc)
 
 
 def test_aux_plane_and_didi_raise():
