@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives ``mv3d_tpu_torch`` — never jax — through its four paths at full
+Drives ``mv3d_tpu_torch`` — never jax — through its five paths at full
 KITTI width (top view 800x600x27, rgb 375x1242, 65,536 points per frame,
 30,000 anchors) with random weights from a seed, and holds each of their
 hand-written kernels against its plain PyTorch version:
@@ -30,7 +30,17 @@ hand-written kernels against its plain PyTorch version:
     configuration in process on uncropped sweeps of 131,072 points, longer
     than a cluster holds, sorts them as blocks of 65,536 in one radix
     launch and merges the runs stably (``sort_merge``, one launch per
-    doubling), which the sort's wrapper picks by row length.
+    doubling), which the sort's wrapper picks by row length;
+  * the training command from disk: ``mv3d_tpu_torch.cli.train`` over a
+    KITTI object directory written by this script (8 frames of ~110,000
+    raw points, PNGs at the four KITTI image sizes, decoded by the port's
+    PNG reader and resized by its port of PIL's bilinear resample), B=2,
+    4 ordered loader workers, with the validation interleave and its 3D
+    IoU, the metrics JSONL, the dashboard and checkpoints: in the served
+    s2d2p configuration without the host aux plane (K2 on every
+    training step, eval step and validation prediction) and in hwc with
+    the host aux plane (K3 on every training and eval step, K1 on every
+    validation prediction).
 
 Phases:
 
@@ -51,7 +61,9 @@ Phases:
      K4's output against K1 on the unsorted points (at 65,536 and 131,072
      points); then, on the card, the s2d2p pair and the s2d2 view
      equal the folded hwc view bit for bit (K2 against K1) and their
-     unfolded occupancy the hwc occupancy;
+     unfolded occupancy the hwc occupancy; the front view
+     (``use_front=True``, B=2 full-width clouds) on the card against the
+     CPU, every point's pixel equal and the values within atol 5e-5;
   4. serve three requests (B=2, distinct clouds) in each in-process
      serving configuration and check that its kernel ran once per request
      and the other kernels not at all, the outputs' shape and finiteness,
@@ -71,8 +83,22 @@ Phases:
      step, frozen subnets bit-unchanged and trained ones moved in stage 1,
      BatchNorm statistics moved in every subnet that ran, and that a
      checkpoint loaded into a fresh ``MV3D`` gives bit-equal detections;
-     then one small f32 training step on the card against the CPU;
-  6. time each kernel against its plain version and the one PyTorch call
+     then one small f32 training step on the card against the CPU, in
+     hwc with the host aux plane and in the served s2d2p configuration
+     (the split stem's backward);
+  6. the training command: write the KITTI directory (ImageSets train 6 /
+     val 2) and check that its PNGs decode to the arrays written and
+     that the PNG helper (Average and Paeth rows in C) equals its numpy
+     twin on every filter type; run ``cli.train.main`` in process in the
+     served s2d2p configuration (12 iterations, a validation every 4,
+     checkpoints every 5), resume it with ``-c`` (3 more: the step count
+     continues), run it in hwc with the host aux plane (6 iterations)
+     and again as ``python -m mv3d_tpu_torch.cli.train``; each run's
+     kernel launches are counted (counts set to 0 just before, read just
+     after) and held to the layout's rules, its losses finite, its
+     validation rows carry ``iou`` in log.txt and the metrics JSONL, the
+     dashboard and a checkpoint of every subnet exist;
+  7. time each kernel against its plain version and the one PyTorch call
      that computes the same function, where there is one (CUDA events, the
      wrapper included), at B=1, 2 and 8, beside the kernel's device time
      alone (CUDA events over calls enqueued behind a spin kernel, so they
@@ -92,27 +118,37 @@ Phases:
      ``predict_from_points`` at "pallas-sort" and at "sort"; the training
      step at B=2 (three windows of TRAIN_WINDOW_STEPS steps after
      TRAIN_WARMUP_STEPS: ms/step and frames/s, median and range) with its
-     peak allocated memory;
-  7. only with ``--profile DIR``: torch.profiler over a few requests of
-     each serving configuration at B=1 and B=8 and a few training steps:
+     peak allocated memory; the s2d2p and hwc training steps at B=2 fed
+     by the disk loader (4 workers) and by batches held in memory; the
+     disk loader alone at 1, 2 and 4 workers and one thread's time per
+     frame by stage (velodyne, label, PNG decode, resize, crop and pad,
+     aux plane);
+  8. only with ``--profile DIR``: torch.profiler over a few requests of
+     each serving configuration at B=1 and B=8 and a few training steps
+     (the in-memory hwc step, the disk-fed s2d2p and hwc steps):
      the card's busy time per request or step (union of kernel
      intervals), its idle share against the median wall time, peak
      allocated memory and the ops with the most device time; the
      profiler's tables go to DIR.
 
 Any failure raises, so the exit code is non-zero and no result line is
-printed. The line before the last is the kernels' JSON record; the last is
-``{"ok": true, "device": {...}}``. Checkpoints, serving artifacts and logs
-go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the checkout and
-are removed. Run from the repository root:
+printed. The line before the last is the kernels' JSON record (each
+kernel's launches summed over the paths counted: K1 serving and hwc
+validation predictions, K2 serving and the s2d2p command, K3 the
+training phase and the hwc command); the last is ``{"ok": true,
+"device": {...}}``. Checkpoints, serving artifacts, logs and the KITTI
+directory go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the
+checkout and are removed. Run from the repository root:
 
     python3 chip_smoke.py [--profile DIR]
 
 ``make_cloud``, ``SynthDrive``, ``small_reference``,
 ``small_train_reference``, ``sort_cases``, ``merge_passes``,
 ``check_sort``, ``check_sort_then_sweep``, ``sweep_cases``,
-``check_sweep``, ``check_sweep_cases``, ``padded_cases`` and
-``check_padded_cases`` are shared with the port's tests.
+``check_sweep``, ``check_sweep_cases``, ``padded_cases``,
+``check_padded_cases``, ``write_kitti_dir``, ``SERVED_FLAGS``,
+``check_command_outputs`` and ``_metric_rows`` are shared with the port's
+tests.
 """
 
 import argparse
@@ -129,8 +165,8 @@ import time
 THRESH = 0.05
 # seconds per serving window, three windows per batch size, after a
 # warm-up window
-SERVE_WINDOW_S = 5.0
-SERVE_WARMUP_S = 3.0
+SERVE_WINDOW_S = 3.0
+SERVE_WARMUP_S = 2.0
 # training steps per timing window, three windows, after the warm-up steps
 TRAIN_WINDOW_STEPS = 5
 TRAIN_WARMUP_STEPS = 3
@@ -251,6 +287,63 @@ class SynthDrive:
         return self.frames[i]
 
 
+# the image sizes KITTI object frames come at (height, width)
+KITTI_IMAGE_SIZES = ((370, 1224), (374, 1238), (375, 1242), (376, 1241))
+
+
+def write_kitti_dir(root, drive, cfg, n_train, image_sizes=KITTI_IMAGE_SIZES,
+                    rng=None):
+    """Write ``drive``'s frames (a :class:`SynthDrive`) as a KITTI object
+    directory: ``training/velodyne/*.bin``, ``training/label_2/*.txt`` (the
+    gt cars in camera coordinates, made with the port's
+    ``boxes3d_decompose`` and ``lidar_to_camera_points``),
+    ``training/image_2/*.png`` (written by the port's encoder at the
+    frames' ``image_sizes`` in turn, a smooth image with noise, the rows'
+    filters cycling through all five types) and ``ImageSets/train.txt``
+    (the first ``n_train`` tags) and ``val.txt`` (the rest). Returns
+    {tag: the uint8 image written}."""
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch.ops.boxes3d import (boxes3d_decompose,
+                                            lidar_to_camera_points)
+    from mv3d_tpu_torch.utils.png import write_png
+    rng = rng or np.random.RandomState(0)
+    base = os.path.join(root, "training")
+    for sub in ("velodyne", "label_2", "image_2"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    images, tags = {}, []
+    for i, f in enumerate(drive.frames):
+        tag = f"{i:06d}"
+        tags.append(tag)
+        f.points.astype(np.float32).tofile(
+            os.path.join(base, "velodyne", tag + ".bin"))
+        t, size, rot = (x.numpy() for x in boxes3d_decompose(
+            torch.from_numpy(f.gt_boxes3d)))
+        cam = lidar_to_camera_points(torch.from_numpy(t), cfg).numpy()
+        with open(os.path.join(base, "label_2", tag + ".txt"), "w") as out:
+            for c, (h, w, l), yaw in zip(cam, size, rot[:, 2]):
+                ry = -yaw - np.pi / 2
+                out.write(f"Car 0.00 0 0.00 0.00 0.00 50.00 50.00 {h:.6f} "
+                          f"{w:.6f} {l:.6f} {c[0]:.6f} {c[1]:.6f} "
+                          f"{c[2]:.6f} {ry:.6f}\n")
+            out.write("DontCare -1 -1 -10 0 0 10 10 -1 -1 -1 -1000 -1000 "
+                      "-1000 -10\n")
+        h, w = image_sizes[i % len(image_sizes)]
+        yy, xx = np.mgrid[:h, :w]
+        smooth = (np.sin(xx / (40.0 + 7 * i))[..., None] * [60, 40, 20]
+                  + np.cos(yy / (25.0 + 3 * i))[..., None] * [30, 50, 70])
+        img = np.clip(smooth + 120 + rng.randint(0, 16, (h, w, 3)), 0, 255
+                      ).astype(np.uint8)
+        write_png(os.path.join(base, "image_2", tag + ".png"), img,
+                  filters=np.arange(h) % 5)
+        images[tag] = img
+    for name, part in (("train", tags[:n_train]), ("val", tags[n_train:])):
+        with open(os.path.join(root, "ImageSets", name + ".txt"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    return images
+
+
 def closed_loop(call, seconds: float):
     """Closed-loop serving for ``seconds``: ``call(i)`` for request i, one
     at a time, each waited for (the card synchronized). Returns the
@@ -339,6 +432,7 @@ def profile_calls(call, n: int, label: str, median_s: float, out_dir: str,
         f"; self device time of aten ops: " + ", ".join(
             f"{a.key} {getattr(a, key) / total:.0%}" for a in ops[:8])
         + f" [{card}] (table: {path})")
+    return busy_ms
 
 
 def small_reference(rng, dev, serving: bool = False):
@@ -432,19 +526,28 @@ def _small_config():
         image_width=96, image_height=64)
 
 
-def train_step_pair(rng, devices, work_dir, threads=(None, None)):
+def train_step_pair(rng, devices, work_dir, threads=(None, None),
+                    serving: bool = False):
     """One f32 training step of the RPN stage on the small config, with
     the same weights, batch (a 2-frame synthetic drive from ``rng``) and
     draws on each of ``devices`` (CPU runs with ``threads`` CPU threads
-    where given). Returns one dict per device: losses, target masks, the
-    fusion targets' rgb ROI corners, and top_view_rpn's gradients and
-    updated parameters, all on the CPU."""
+    where given). With ``serving`` the config is the served one
+    (``serving_config``: the s2d2p pair, bf16 view, split stem, matmul
+    ROI-align) without the host aux plane; compute stays f32. Returns one
+    dict per device: losses, target masks, the fusion targets' rgb ROI
+    corners, and top_view_rpn's gradients and updated parameters, all on
+    the CPU."""
     import torch
+    from mv3d_tpu_torch import serving_config
     from mv3d_tpu_torch.data.loader import frames_to_batch
     from mv3d_tpu_torch.models.mv3d_net import project_to_rgb_roi
     from mv3d_tpu_torch.train.trainer import Trainer
 
     cfg = _small_config()
+    if serving:
+        cfg = serving_config(cfg)
+        cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+            cfg.pipeline, host_aux_channels=False))
     drive = SynthDrive(rng, cfg, 2, 8000, cars=(2, 3))
     batch = frames_to_batch(drive.frames, cfg)
     runs = []
@@ -469,11 +572,13 @@ def train_step_pair(rng, devices, work_dir, threads=(None, None)):
     return runs
 
 
-def small_train_reference(rng, dev, work_dir):
+def small_train_reference(rng, dev, work_dir, serving: bool = False):
     """One f32 training step of the RPN stage (the loader's host aux
-    plane, heights on the device) with the same weights, batch and draws
-    on the card and on the CPU: losses, target masks, gradients and the
-    updated parameters must agree.
+    plane, heights on the device; with ``serving`` the served s2d2p
+    configuration, every channel on the device, through the split stem's
+    backward) with the same weights, batch and draws on the card and on
+    the CPU: losses, target masks, gradients and the updated parameters
+    must agree.
 
     Tolerances (those of tests/test_torch_train.py): target masks exact;
     RPN losses rtol 1e-4; gradients within 1e-3 of each tensor's max |g|;
@@ -489,7 +594,8 @@ def small_train_reference(rng, dev, work_dir):
     and the card test pass a ``RandomState(2)`` of their own, not a
     generator that earlier phases have advanced."""
     import torch
-    c, g = train_step_pair(rng, (torch.device("cpu"), dev), work_dir)
+    c, g = train_step_pair(rng, (torch.device("cpu"), dev), work_dir,
+                           serving=serving)
     for a, b in zip(c["masks"], g["masks"]):
         if not torch.equal(a, b):
             raise AssertionError("small training step: target masks differ "
@@ -522,7 +628,9 @@ def small_train_reference(rng, dev, work_dir):
         p_err = max(p_err, (pg - pc).abs().max().item() if sure.any()
                     else 0.0)
         n_cmp += int(sure.sum())
-    log("phase train-reference: small f32 RPN-stage step, card vs CPU: "
+    log(f"phase train-reference: small f32 RPN-stage step "
+        f"({'s2d2p, split stem' if serving else 'hwc, host aux plane'}), "
+        f"card vs CPU: "
         f"same target masks ({int(c['masks'][2].sum())} positive anchors, "
         f"{int(c['masks'][5].sum())} positive rois); loss rel diffs "
         + ", ".join(f"{k} {e:.2g}" for k, e in errs.items())
@@ -642,6 +750,413 @@ def train_phase(cfg, dev, rng, work_dir, card):
         f"detections bit-equal ({int(want.mask.sum())} live, from the "
         f"host aux plane + heights kernel)")
     return tr2, loader, launches1 + launches2
+
+
+def check_front_view(rng, cfg, dev, n_pts):
+    """The cylindrical front view (``use_front=True``) of full-width clouds
+    (B=2) on the card against the CPU: every point's pixel equal, the
+    per-pixel means within atol 5e-5 (tests/test_torch_voxelize.py's; the
+    card's ``index_add_`` sums in atomic order)."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize as vox
+    front_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_front=True))
+    pts = torch.from_numpy(make_cloud(rng, 2, n_pts, front_cfg, tricky=True))
+    num = torch.tensor([n_pts, n_pts - 1000], dtype=torch.int32)
+    pix_c = vox.front_pixels(pts, front_cfg, num)
+    pix_g = vox.front_pixels(pts.to(dev), front_cfg, num.to(dev)).cpu()
+    front_c = vox.lidar_to_front_batch(pts, front_cfg, num)
+    front_g = vox.lidar_to_front_batch(pts.to(dev), front_cfg,
+                                       num.to(dev)).cpu()
+    moved = int((pix_c != pix_g).sum())
+    n_pix = front_cfg.front.width * front_cfg.front.height
+    err = (front_c - front_g).abs().max().item()
+    log(f"phase front-view: B=2 N={n_pts} ({int((pix_c < n_pix).sum())} "
+        f"points in the view), card vs CPU: {moved} points on another "
+        f"pixel (tol 0), values max |diff| {err:.3g} (tol 5e-5)")
+    if moved or not err <= 5e-5:
+        raise AssertionError(f"front view on the card differs from the "
+                             f"CPU: {moved} points moved, max |diff| {err}")
+
+
+# the served configuration as ``cli.train`` flags: serving_config's fields
+# (s2d2p in bf16, the matmul ROI-align) without the host aux plane
+SERVED_FLAGS = ("--set", "pipeline.use_pallas_fused", "True",
+                "--set", "pipeline.use_pallas_heights", "True",
+                "--set", "pipeline.view_layout", "s2d2p",
+                "--set", "pipeline.top_view_dtype", "bfloat16",
+                "--set", "model.roi_align_impl", "matmul",
+                "--set", "pipeline.host_aux_channels", "False")
+
+
+def check_png_path(data_dir, images):
+    """The images written to ``data_dir`` decode to the arrays written (the
+    port's ``read_image``), their rows used all five filter types, and the
+    C helper equals its numpy twin on every filter type."""
+    import numpy as np
+    from mv3d_tpu_torch.data.kitti import read_image
+    from mv3d_tpu_torch.utils import png
+    used = np.zeros(5, np.int64)
+    for tag, img in images.items():
+        path = os.path.join(data_dir, "training", "image_2", tag + ".png")
+        if not np.array_equal(read_image(path), img):
+            raise AssertionError(f"decoded {tag}.png differs from the "
+                                 f"array written")
+        with open(path, "rb") as f:
+            used += np.bincount(png.row_filters(f.read()), minlength=5)
+    if not used.all():
+        raise AssertionError(f"the images' rows used filters {used}")
+    img = next(iter(images.values()))
+    for ftype in range(5):
+        data = png.encode_png(img[:48, :96], ftype)
+        got = png.decode_png(data)
+        twin = png.decode_png(data, row_fn=png.unfilter_row_plain)
+        if not (np.array_equal(got, img[:48, :96])
+                and np.array_equal(twin, got)):
+            raise AssertionError(f"PNG filter {ftype}: the C helper or its "
+                                 f"numpy twin decodes wrongly")
+    for ftype in (3, 4):     # whole rows of a frame, against the twin
+        cand = png.filter_rows(img[:4].reshape(4, -1), 3)[ftype]
+        prev = img[0].reshape(-1)
+        a, b = cand[1].copy(), cand[1].copy()
+        png.unfilter_row_kernel(ftype, a, prev, 3)
+        png.unfilter_row_plain(ftype, b, prev, 3)
+        if not (np.array_equal(a, b) and np.array_equal(
+                a, img[1].reshape(-1))):
+            raise AssertionError(f"PNG filter {ftype}: the C helper differs "
+                                 f"from its numpy twin on a full row")
+    log(f"phase train-cmd: {len(images)} PNGs at "
+        f"{sorted({im.shape[:2] for im in images.values()})} decode to the "
+        f"arrays written (rows per filter None/Sub/Up/Avg/Paeth "
+        f"{'/'.join(str(int(u)) for u in used)}); the C helper equals its "
+        f"numpy twin on every filter type")
+
+
+def _metric_rows(log_dir, tag):
+    with open(os.path.join(log_dir, f"metrics_{tag}.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def check_command_outputs(log_dir, ckpt_dir, tag, rows):
+    """What a training command leaves: finite losses, validation rows
+    with ``iou`` in the metrics JSONL and in log.txt, the dashboard, a
+    checkpoint of every trained subnet (all four)."""
+    import numpy as np
+    from mv3d_tpu_torch.models.nets import SUBNET_NAMES
+    keys = ("top_cls_loss", "top_reg_loss", "fuse_cls_loss",
+            "fuse_reg_loss")
+    if not rows or not all(np.isfinite([r[k] for k in keys]).all()
+                           for r in rows):
+        raise AssertionError(f"{tag}: no rows or a non-finite loss")
+    val = [r for r in rows if r["phase"] == "validation"]
+    if not val or not all("iou" in r and np.isfinite(r["iou"]) for r in val):
+        raise AssertionError(f"{tag}: validation rows without iou")
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        lines = [ln for ln in f if ln.lstrip().startswith("validation:")]
+    if len(lines) < len(val) or not all("iou" in ln for ln in lines):
+        raise AssertionError(f"{tag}: log.txt lacks validation iou lines")
+    if not os.path.exists(os.path.join(log_dir, "dashboard.html")):
+        raise AssertionError(f"{tag}: no dashboard.html")
+    for name in SUBNET_NAMES:
+        d = os.path.join(ckpt_dir, tag, name)
+        if not (os.path.isdir(d) and any(f.endswith(".npz")
+                                         for f in os.listdir(d))):
+            raise AssertionError(f"{tag}: no checkpoint of {name}")
+    return val
+
+
+def run_train_main(argv, counters):
+    """``mv3d_tpu_torch.cli.train.main(argv)`` in process, every kernel's
+    count set to 0 just before and read just after. Returns (seconds,
+    counts)."""
+    import torch
+    from mv3d_tpu_torch.cli import train as train_cli
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    train_cli.main(list(argv))
+    torch.cuda.synchronize()
+    return time.time() - t0, {k: c.launches for k, c in counters.items()}
+
+
+def _expect(counts, want, label):
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: kernel launches {got}, expected "
+                             f"{want}")
+
+
+def train_command_phase(rng, cfg, dev, work_dir, counters):
+    """The training command over a KITTI object directory on disk (8
+    frames of ~110,000 raw points with 3-8 gt cars, PNGs at the four KITTI
+    sizes; ImageSets train 6 / val 2), B=2, 4 loader workers: the served
+    s2d2p configuration in process (12 iterations, a validation every 4,
+    checkpoints every 5), a ``-c`` resume of 3, the hwc configuration
+    with the host aux plane in process (6 iterations, one validation) and
+    as users run it, ``python -m mv3d_tpu_torch.cli.train`` (the same).
+    Returns (data_dir, {kernel: launches}) summed over the in-process
+    runs."""
+    t0 = time.time()
+    data_dir = os.path.join(work_dir, "kitti")
+    drive = SynthDrive(rng, cfg, 8, 110000)
+    images = write_kitti_dir(data_dir, drive, cfg, 6, rng=rng)
+    log(f"phase train-cmd: KITTI object directory of 8 frames written in "
+        f"{time.time() - t0:.1f} s")
+    check_png_path(data_dir, images)
+    sets = os.path.join(data_dir, "ImageSets")
+    common = ("--kitti-object", data_dir,
+              "--train-split", os.path.join(sets, "train.txt"),
+              "--val-split", os.path.join(sets, "val.txt"),
+              "-b", "2", "--loader-workers", "4",
+              "--checkpoint-dir", os.path.join(work_dir, "ckpt"),
+              "--set", "rcnn.score_threshold", str(THRESH),
+              "--set", "train.validation_every", "4",
+              "--set", "train.ckpt_every", "5")
+    total = {k: 0 for k in counters}
+
+    def logs(tag):
+        return ("-n", tag, "--log-dir", os.path.join(work_dir, "log_" + tag))
+
+    secs, counts = run_train_main(common + SERVED_FLAGS + logs("s2d2p")
+                                  + ("-i", "12"), counters)
+    rows = _metric_rows(os.path.join(work_dir, "log_s2d2p"), "s2d2p")
+    n_val = sum(r["phase"] == "validation" for r in rows)
+    n_train = len(rows) - n_val
+    _expect(counts, {"voxelize_padded": n_train + 2 * n_val,
+                     "voxelize_sweep": 0, "voxelize_heights": 0,
+                     "sort_radix": 0, "sort_merge": 0}, "s2d2p command")
+    val = check_command_outputs(os.path.join(work_dir, "log_s2d2p"),
+                                os.path.join(work_dir, "ckpt"), "s2d2p",
+                                rows)
+    for k in total:
+        total[k] += counts[k]
+    log(f"phase train-cmd: s2d2p (served configuration, no host aux "
+        f"plane) 12 iterations in {secs:.1f} s: {n_train} training and "
+        f"{n_val} validation steps, voxelize_padded launched "
+        f"{counts['voxelize_padded']} times (one per training step, eval "
+        f"step and validation prediction), no other kernel; validation iou "
+        + ", ".join(f"{r['iou']:.4f}" for r in val) + "; losses finite; "
+        "log.txt, metrics JSONL, dashboard.html and checkpoints of all "
+        "four subnets written")
+
+    secs, counts = run_train_main(common + SERVED_FLAGS + logs("s2d2p")
+                                  + ("-i", "3", "-c"), counters)
+    resumed = _metric_rows(os.path.join(work_dir, "log_s2d2p"),
+                           "s2d2p")[len(rows):]
+    steps = [r["step"] for r in resumed]
+    n_val = sum(r["phase"] == "validation" for r in resumed)
+    if steps != [12, 13, 14]:
+        raise AssertionError(f"-c resume ran steps {steps}, not 12-14")
+    _expect(counts, {"voxelize_padded": len(steps) + n_val},
+            "s2d2p resume")
+    total["voxelize_padded"] += counts["voxelize_padded"]
+    log(f"phase train-cmd: -c resume continued at step 12 (steps {steps}, "
+        f"{n_val} validation) in {secs:.1f} s")
+
+    secs, counts = run_train_main(common + logs("hwc") + ("-i", "6"),
+                                  counters)
+    rows = _metric_rows(os.path.join(work_dir, "log_hwc"), "hwc")
+    n_val = sum(r["phase"] == "validation" for r in rows)
+    _expect(counts, {"voxelize_heights": len(rows), "voxelize_sweep": n_val,
+                     "voxelize_padded": 0, "sort_radix": 0,
+                     "sort_merge": 0}, "hwc command")
+    check_command_outputs(os.path.join(work_dir, "log_hwc"),
+                          os.path.join(work_dir, "ckpt"), "hwc", rows)
+    for k in total:
+        total[k] += counts[k]
+    log(f"phase train-cmd: hwc (host aux plane) 6 iterations in {secs:.1f} "
+        f"s: voxelize_heights {counts['voxelize_heights']} (one per "
+        f"training and eval step), voxelize_sweep "
+        f"{counts['voxelize_sweep']} (one per validation prediction)")
+
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "mv3d_tpu_torch.cli.train", *common,
+         *logs("hwc_cli"), "-i", "6"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m mv3d_tpu_torch.cli.train failed "
+                             f"({out.returncode}):\n{out.stderr[-4000:]}")
+    rows = _metric_rows(os.path.join(work_dir, "log_hwc_cli"), "hwc_cli")
+    check_command_outputs(os.path.join(work_dir, "log_hwc_cli"),
+                          os.path.join(work_dir, "ckpt"), "hwc_cli", rows)
+    log(f"phase train-cmd: python -m mv3d_tpu_torch.cli.train (hwc) "
+        f"exited 0 in {time.time() - t0:.1f} s with {len(rows)} rows, "
+        f"validation iou and every output on disk")
+    return data_dir, total
+
+
+def step_windows(step, label, card, b=2):
+    """TRAIN_WARMUP_STEPS calls of ``step(i)``, then three windows of
+    TRAIN_WINDOW_STEPS: ms/step and frames/s per window, then the median
+    and range. Returns the median ms/step."""
+    import numpy as np
+    import torch
+    for i in range(TRAIN_WARMUP_STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    step_ms = []
+    for w in range(3):
+        t0 = time.perf_counter()
+        for i in range(TRAIN_WINDOW_STEPS):
+            step(i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) / TRAIN_WINDOW_STEPS * 1e3)
+        log(f"phase timing: {label} window {w + 1}/3: {step_ms[-1]:.1f} "
+            f"ms/step, {b * 1e3 / step_ms[-1]:.2f} frames/s [{card}]")
+    med = float(np.median(step_ms))
+    log(f"phase timing: {label}: {med:.1f} ms/step, {b * 1e3 / med:.2f} "
+        f"frames/s, median of 3 windows of {TRAIN_WINDOW_STEPS} steps "
+        f"(range {min(step_ms):.1f}-{max(step_ms):.1f} ms/step) [{card}]")
+    return med
+
+
+def loader_timing(data_dir, cfg, label, card):
+    """The disk loader alone: frames/s of ``BatchLoader`` (B=2, 8
+    batches counted from its construction) at 1, 2 and 4 workers, one
+    thread's ms per frame by stage over the directory's frames, and how
+    much each stage on another thread slows the main thread's op
+    dispatch (``loader_interference``)."""
+    import numpy as np
+    from mv3d_tpu_torch.data import host_aux
+    from mv3d_tpu_torch.data.kitti import (KittiObjectDataset,
+                                           kitti_label_to_lidar_box3d,
+                                           read_image, read_velodyne)
+    from mv3d_tpu_torch.data.loader import (BatchLoader, frames_to_batch,
+                                            prepare_rgb)
+    ds = KittiObjectDataset(data_dir, cfg=cfg)
+    rates = []
+    for workers in (1, 2, 4):
+        t0 = time.perf_counter()
+        with BatchLoader(ds, cfg, batch_size=2, workers=workers) as bl:
+            for _ in range(8):
+                bl.load()
+            rates.append(16 / (time.perf_counter() - t0))
+    stages = {k: [] for k in ("velodyne", "label", "png decode", "resize",
+                              "crop and pad", "aux plane")}
+    png0 = ds._p("image_2", ds.tags[0], ".png")
+    pts0 = read_velodyne(ds._p("velodyne", ds.tags[0], ".bin"))
+    img0 = read_image(png0)
+    loops = {"png decode": lambda: read_image(png0),
+             "resize": lambda: prepare_rgb(img0, cfg),
+             "crop and pad": lambda: host_aux.crop_pad(
+                 pts0, cfg.pipeline.max_points, cfg),
+             "whole frame": lambda: frames_to_batch([ds.load_frame(0)], cfg)}
+    if cfg.pipeline.host_aux_channels:
+        loops["aux plane"] = lambda: host_aux.lidar_to_top_aux(
+            host_aux.crop_pad(pts0, cfg.pipeline.max_points, cfg)[0], cfg)
+    for tag in ds.tags:
+        t = [time.perf_counter()]
+        pts = read_velodyne(ds._p("velodyne", tag, ".bin"))
+        t.append(time.perf_counter())
+        with open(ds._p("label_2", tag, ".txt")) as f:
+            kitti_label_to_lidar_box3d(f.readlines(), positive_only=False,
+                                       cfg=cfg)
+        t.append(time.perf_counter())
+        img = read_image(ds._p("image_2", tag, ".png"))
+        t.append(time.perf_counter())
+        prepare_rgb(img, cfg)
+        t.append(time.perf_counter())
+        padded, k = host_aux.crop_pad(pts, cfg.pipeline.max_points, cfg)
+        t.append(time.perf_counter())
+        if cfg.pipeline.host_aux_channels:
+            host_aux.lidar_to_top_aux(padded[:k], cfg)
+        t.append(time.perf_counter())
+        for name, a, b in zip(stages, t, t[1:]):
+            stages[name].append(b - a)
+    log(f"phase timing: disk loader alone, {label} (B=2, 8 batches from "
+        f"construction): " + ", ".join(
+            f"{w} worker{'s' * (w > 1)} {r:.1f} frames/s"
+            for w, r in zip((1, 2, 4), rates))
+        + "; one thread's ms/frame by stage: " + ", ".join(
+            f"{k} {np.mean(v) * 1e3:.1f}" for k, v in stages.items()
+            if k != "aux plane" or cfg.pipeline.host_aux_channels)
+        + f" [{card}]")
+    loader_interference(loops, label, card)
+
+
+def host_op_rate(seconds: float = 1.0) -> float:
+    """Tiny CPU tensor ops a second on this thread: a stand-in for the
+    training step's host work, which dispatches one op after another."""
+    import torch
+    x = torch.zeros(64, 64)
+    n, end = 0, time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        x = x + 1
+        n += 1
+    return n / seconds
+
+
+def loader_interference(stages, label, card):
+    """How much each loader stage, looped on one other thread, slows the
+    main thread's op dispatch (``host_op_rate``): the share of the
+    interpreter lock and of the core a loader worker takes from the
+    training step's host side."""
+    import threading
+    alone = host_op_rate()
+    out = []
+    for name, fn in stages.items():
+        stop = threading.Event()
+
+        def loop():
+            while not stop.is_set():
+                fn()
+
+        worker = threading.Thread(target=loop)
+        worker.start()
+        time.sleep(0.05)
+        out.append((name, host_op_rate() / alone))
+        stop.set()
+        worker.join()
+    log(f"phase timing: disk loader, {label}: the main thread's op rate "
+        f"beside one thread looping each stage, relative to alone "
+        f"({alone:.0f} ops/s): " + ", ".join(f"{k} {v:.2f}" for k, v in out)
+        + f" [{card}]")
+
+
+def train_command_timing(data_dir, cfg, dev, work_dir, card, profile_dir):
+    """The training step at B=2 fed by the disk loader (4 workers; s2d2p
+    also 1 and 2) and by three batches held in memory, in the served
+    s2d2p configuration and in hwc with the host aux plane; the loader
+    alone; with ``profile_dir`` each disk-fed step under
+    torch.profiler."""
+    from mv3d_tpu_torch import serving_config
+    from mv3d_tpu_torch.data.kitti import KittiObjectDataset
+    from mv3d_tpu_torch.data.loader import BatchLoader
+    from mv3d_tpu_torch.train.trainer import Trainer
+    served = serving_config(cfg)
+    served = dataclasses.replace(served, pipeline=dataclasses.replace(
+        served.pipeline, host_aux_channels=False))
+    split = os.path.join(data_dir, "ImageSets", "train.txt")
+    for label, c in (("s2d2p", served), ("hwc", cfg)):
+        ds = KittiObjectDataset(data_dir, split_file=split, cfg=c)
+        tr = Trainer(None, cfg=c, device=dev, log_tag="timing_" + label,
+                     checkpoint_dir=os.path.join(work_dir, "ckpt"),
+                     log_dir=os.path.join(work_dir, "log_timing"))
+        for workers in ((1, 2) if label == "s2d2p" else ()):
+            with BatchLoader(ds, c, batch_size=2, workers=workers) as loader:
+                step_windows(lambda i: tr.fit_iteration(loader.load()),
+                             f"train {label} B=2 from disk ({workers} loader "
+                             f"worker{'s' * (workers > 1)})", card)
+        with BatchLoader(ds, c, batch_size=2, workers=4) as loader:
+            med = step_windows(lambda i: tr.fit_iteration(loader.load()),
+                               f"train {label} B=2 from disk (4 loader "
+                               f"workers)", card)
+            if profile_dir:
+                busy = profile_calls(lambda i: tr.fit_iteration(
+                    loader.load()), 3, f"train {label} B=2 step from disk",
+                    med / 1e3, profile_dir, card)
+            held = [loader.load() for _ in range(3)]
+        mem = step_windows(lambda i: tr.fit_iteration(held[i % 3]),
+                           f"train {label} B=2 from memory", card)
+        if profile_dir:
+            log(f"phase profile: train {label} B=2: idle share "
+                f"{1 - busy / mem:.2f} of the memory-fed step's median "
+                f"{mem:.1f} ms [{card}]")
+        tr.close()
+        del tr, held
+    for label, c in (("s2d2p", served), ("hwc", cfg)):
+        loader_timing(data_dir, c, label, card)
 
 
 def kernel_bounds(b, n_points, n_cells, zn, n_sc):
@@ -1417,6 +1932,10 @@ def main(argv=None) -> int:
         log("chip_smoke: no CUDA device; this test runs only on the card")
         return 1
     t_start = time.time()
+
+    def started(phase):
+        log(f"phase {phase}: from {time.time() - t_start:.0f} s")
+
     card = card_line()
     log(card)
 
@@ -1486,6 +2005,7 @@ def main(argv=None) -> int:
         log(f"phase build: ptxas, {os.path.basename(src)}: "
             + "; ".join(cuda_build.ptxas_report(src)) + f"; {note}")
 
+    started("kernels against their plain versions")
     # -- 3. each kernel against its plain version -------------------------
     def prep(b, device, s2d=False):
         """Quantized tricky clouds: K1/K3's row-major ids, or with
@@ -1632,7 +2152,9 @@ def main(argv=None) -> int:
     del got_h, plain_h, lib_h, lib_idx, pflat, pval, prefl
     del long_rows, runs, merged
     check_folded_views(rng, pad_cfg, dev, n_pts)
+    check_front_view(rng, cfg, dev, n_pts)
 
+    started("serving")
     # -- 4. serve three requests through each serving path ----------------
     requests = [(make_cloud(rng, 2, n_pts, cfg, tricky=False),
                  np.full(2, n_pts, np.int32),
@@ -1672,13 +2194,24 @@ def main(argv=None) -> int:
          "sort_merge": 2})["sort_merge"]
     del long_model, long_requests
 
+    started("training")
     # -- 5. train at full width, then a small step against the CPU -------
     trainer, loader, train_launches = train_phase(
         train_cfg, dev, rng, work_dirs[0], card)
     small_train_reference(np.random.RandomState(2), dev,
                           os.path.join(work_dirs[0], "small"))
+    small_train_reference(np.random.RandomState(2), dev,
+                          os.path.join(work_dirs[0], "small_s2d2p"),
+                          serving=True)
 
-    # -- 6. timings --------------------------------------------------------
+    started("the training command")
+    # -- 6. the training command over a KITTI directory on disk -----------
+    cmd_dir = os.path.join(work_dirs[1], "train_cmd")
+    data_dir, cmd_launches = train_command_phase(rng, cfg, dev, cmd_dir,
+                                                 counters)
+
+    started("timings")
+    # -- 7. timings --------------------------------------------------------
     bounds = {b: kernel_bounds(b, n_pts, n_cells, zn, n_sc)
               for b in (1, 2, 8)}
     for name, (k_ms, p_ms, l_ms) in timed.items():
@@ -1785,45 +2318,38 @@ def main(argv=None) -> int:
     http_timing(rng, serve_cfg, dev, n_pts, work_dirs[0], opts.profile,
                 card)
 
-    for _ in range(TRAIN_WARMUP_STEPS):
-        trainer.fit_iteration(loader.load())
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for w in range(3):
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_WINDOW_STEPS):
-            trainer.fit_iteration(loader.load())
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) / TRAIN_WINDOW_STEPS * 1e3)
-        log(f"phase timing: train B=2 window {w + 1}/3: "
-            f"{step_ms[-1]:.1f} ms/step, {2e3 / step_ms[-1]:.2f} frames/s "
-            f"[{card}]")
-    med = float(np.median(step_ms))
-    log(f"phase timing: train B=2 (all subnets, bf16, host aux plane): "
-        f"{med:.1f} ms/step, {2e3 / med:.2f} frames/s, median of 3 windows "
-        f"of {TRAIN_WINDOW_STEPS} steps (range {min(step_ms):.1f}-"
-        f"{max(step_ms):.1f} ms/step); peak allocated "
+    med = step_windows(lambda i: trainer.fit_iteration(loader.load()),
+                       "train B=2 (all subnets, bf16, host aux plane, "
+                       "in-memory drive)", card)
+    log(f"phase timing: train B=2: peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
     if opts.profile:
         profile_calls(lambda i: trainer.fit_iteration(loader.load()), 3,
                       "train B=2 step", med / 1e3, opts.profile, card)
     loader.close()
+    del trainer
+    train_command_timing(data_dir, cfg, dev, cmd_dir, card, opts.profile)
     for d in work_dirs:
         shutil.rmtree(d, ignore_errors=True)
 
     record = {"voxelize_sweep": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_sweep.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:220",
-                  launches=serve_launches, max_abs_err=sweep_err),
+                  launches=serve_launches + cmd_launches["voxelize_sweep"],
+                  max_abs_err=sweep_err),
               "voxelize_padded": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_padded.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:886",
-                  launches=padded_launches, max_abs_err=padded_err),
+                  launches=padded_launches
+                  + cmd_launches["voxelize_padded"],
+                  max_abs_err=padded_err),
               "voxelize_heights": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:46",
-                  launches=train_launches, max_abs_err=heights_err),
+                  launches=train_launches
+                  + cmd_launches["voxelize_heights"],
+                  max_abs_err=heights_err),
               "sort_radix": dict(
                   source="mv3d_tpu_torch/csrc/sort_radix.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",

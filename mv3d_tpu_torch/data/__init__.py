@@ -1,1 +1,2 @@
-"""Host-side data: crop + pad, host aux planes, the batch loader."""
+"""Host-side data: KITTI readers, tracklets, crop + pad, host aux planes,
+the rgb resize and the batch loader."""

@@ -93,6 +93,11 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     the unbiased variance, and its ``momentum`` is flax's ``1 - momentum``.)
     ``num_batches_tracked`` stays 0: flax keeps no such count."""
 
+    # False while a rematerialized forward is replayed in the backward
+    # pass (``MV3DNet`` with ``train.remat``): the statistics are updated
+    # once a step, by the first forward, as JAX's pure recompute does
+    update_stats = True
+
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps)
 
@@ -106,6 +111,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                                 self.weight, self.bias, False, 0.0, self.eps)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             dims = [0] + list(range(2, x.dim()))
             var, mean = torch.var_mean(x, dim=dims, correction=0)

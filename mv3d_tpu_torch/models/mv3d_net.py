@@ -15,6 +15,12 @@ in the compute dtype; :meth:`MV3DNet.master_weights_f32` holds them in f32
 for training (flax keeps f32 params and casts at each use), and the Adam
 moments follow the parameters' dtype.
 
+With ``train.remat`` each trunk that runs in train mode with gradients is
+wrapped in ``torch.utils.checkpoint`` (as the JAX package wraps it in
+``jax.checkpoint``): its activations are recomputed in the backward pass.
+The recompute runs with the BatchNorm running statistics frozen, so they
+are updated once a step, and with the random state the forward had.
+
 Trunks a configuration does not use are not run: with ``use_front=False``
 (the default) the front view and ``FrontFeatureNet`` are skipped, as XLA
 drops them from the JAX program.
@@ -30,11 +36,13 @@ the options the modules below reject.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config, cfg as _default_cfg
 
@@ -47,7 +55,7 @@ from ..ops.roi_align import roi_align, roi_align_matmul
 from ..ops.voxelize import check_dataset, check_view_layout, f32c
 from ..train import losses as loss_lib
 from ..train import targets as target_lib
-from .backbone import Conv2d, Linear
+from .backbone import BatchNorm, Conv2d, Linear
 from .nets import (FRONT_FEATURE, FUSION, IMAGE_FEATURE, SUBNET_NAMES,
                    TOP_VIEW_RPN, FrontFeatureNet, FusionHead, RgbFeatureNet,
                    TopRPN)
@@ -71,6 +79,20 @@ def project_to_front_roi(rois3d: torch.Tensor, cfg: Config) -> torch.Tensor:
                     / f32c(f.vertical_res, x)) + f.r_offset
     return torch.stack([r.amin(-1), c.amin(-1), r.amax(-1), c.amax(-1)],
                        dim=-1).to(torch.float32)
+
+
+@contextlib.contextmanager
+def _frozen_batch_stats(module: nn.Module):
+    """Run ``module``'s BatchNorm layers without updating their running
+    statistics (train mode still normalizes with the batch's)."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.update_stats = True
 
 
 class MV3DNet(nn.Module):
@@ -194,14 +216,26 @@ class MV3DNet(nn.Module):
                                                 full_hw=(t.xn, t.yn))
         return non_empty_anchor_mask_structured(occ, *args)
 
+    def _trunk(self, module: nn.Module, x):
+        """``module(x)``; rematerialized under ``train.remat`` in train
+        mode with gradients (the replay keeps the BatchNorm statistics and
+        restores the forward's random state)."""
+        if not (self.cfg.train.remat and self.training
+                and torch.is_grad_enabled()):
+            return module(x)
+        return checkpoint(module, x, use_reentrant=False,
+                          preserve_rng_state=True,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _frozen_batch_stats(module)))
+
     def extract_features(self, top, rgb, front) -> Dict[str, torch.Tensor]:
         """Run the trunks of the configured views (in the modules' mode:
         train mode uses and updates batch statistics)."""
-        out = {"rpn": self.top_rpn(top)}
+        out = {"rpn": self._trunk(self.top_rpn, top)}
         if "rgb" in self.views:
-            out["rgb_features"] = self.rgb_net(rgb)
+            out["rgb_features"] = self._trunk(self.rgb_net, rgb)
         if "front" in self.views:
-            out["front_features"] = self.front_net(front)
+            out["front_features"] = self._trunk(self.front_net, front)
         return out
 
     def pool_rois(self, feats: Dict[str, torch.Tensor], rois3d: torch.Tensor,

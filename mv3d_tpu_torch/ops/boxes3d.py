@@ -1,13 +1,18 @@
 """3D box geometry and coordinate transforms on tensors.
 
-Port of the inference- and training-path functions of
-``mv3d_tpu/ops/boxes3d.py``.
+Port of ``mv3d_tpu/ops/boxes3d.py``: the top-view, rgb and camera
+projections, the regression encodings, ``box3d_compose`` /
+``boxes3d_decompose`` on tensors, and the host numpy 3D IoU
+(``boxes3d_score_iou``) that the validation interleave scores with.
 Boxes3d are (..., 8, 3) corner arrays in lidar coordinates; corners 0-3 are
 the bottom face, 4-7 the top face.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from ..config import Config, cfg as _default_cfg
@@ -121,3 +126,168 @@ def regularise_box3d(boxes3d: torch.Tensor) -> torch.Tensor:
                       device=boxes3d.device)
     half = (dis / 2.0)[..., None, None] * ez
     return torch.cat([corners - half, corners + half], dim=-2)
+
+
+# -- lidar <-> camera --------------------------------------------------------
+
+def _transform(points: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """(..., 3) points -> the first three rows of ``m @ [p, 1]``, summed in
+    index order (:func:`_affine`), in the points' dtype."""
+    mt = torch.as_tensor(m.T, dtype=points.dtype, device=points.device)
+    hom = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    return _affine(hom, mt)[..., :3]
+
+
+def lidar_to_camera_points(points: torch.Tensor,
+                           cfg: Config = _default_cfg) -> torch.Tensor:
+    """(..., 3) lidar points -> camera coordinates (KITTI calibration)."""
+    return _transform(points, cfg.r_rect @ cfg.velo_to_cam)
+
+
+def camera_to_lidar_points(points: torch.Tensor,
+                           cfg: Config = _default_cfg) -> torch.Tensor:
+    """(..., 3) camera points -> lidar coordinates."""
+    return _transform(points, np.linalg.inv(cfg.velo_to_cam)
+                      @ np.linalg.inv(cfg.r_rect))
+
+
+def box3d_to_camera_box3d(boxes3d: torch.Tensor,
+                          cfg: Config = _default_cfg) -> torch.Tensor:
+    """(..., 8, 3) lidar boxes -> camera-frame corners."""
+    return lidar_to_camera_points(boxes3d, cfg)
+
+
+# -- compose / decompose -----------------------------------------------------
+
+def box3d_compose(translation, size, rotation,
+                  cfg: Config = _default_cfg) -> torch.Tensor:
+    """(tx, ty, tz), (h, w, l), (rx, ry, rz = yaw) -> (..., 8, 3) corners:
+    the bottom face at z = 0 and the top at z = h, rotated by the yaw, then
+    translated. Leading batch dimensions are allowed on all three."""
+    translation, size, rotation = (
+        torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x)
+                        else x, dtype=torch.float32)
+        for x in (translation, size, rotation))
+    h, w, l = size[..., 0], size[..., 1], size[..., 2]
+    zeros = torch.zeros_like(h)
+    xs = torch.stack([-l / 2, -l / 2, l / 2, l / 2,
+                      -l / 2, -l / 2, l / 2, l / 2], dim=-1)
+    ys = torch.stack([w / 2, -w / 2, -w / 2, w / 2,
+                      w / 2, -w / 2, -w / 2, w / 2], dim=-1)
+    zs = torch.stack([zeros] * 4 + [h] * 4, dim=-1)
+    yaw = rotation[..., 2]
+    c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
+    corners = torch.stack([c * xs - s * ys, s * xs + c * ys, zs], dim=-1)
+    return corners + translation[..., None, :]
+
+
+def boxes3d_decompose(boxes3d: torch.Tensor, cfg: Config = _default_cfg
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., 8, 3) corners -> (translation, size = [h, w, l], rotation =
+    [0, 0, yaw]), each (..., 3): the translation is the bottom face's
+    centroid, l and w the longer and shorter bottom edges, the yaw along
+    the longer one."""
+    t = boxes3d[..., 0:4, :].mean(dim=-2)
+    p0, p1, p2 = (boxes3d[..., i, 0:2] for i in range(3))
+    dis1 = torch.sqrt(((p0 - p1) ** 2).sum(-1))
+    dis2 = torch.sqrt(((p1 - p2) ** 2).sum(-1))
+    length = torch.maximum(dis1, dis2)
+    width = torch.minimum(dis1, dis2)
+    height = torch.sqrt(((boxes3d[..., 0, :] - boxes3d[..., 4, :]) ** 2
+                         ).sum(-1))
+    yaw1 = torch.atan2(p1[..., 1] - p0[..., 1], p1[..., 0] - p0[..., 0])
+    yaw2 = torch.atan2(p2[..., 1] - p1[..., 1], p2[..., 0] - p1[..., 0])
+    yaw = torch.where(dis1 > dis2, yaw1, yaw2)
+    zeros = torch.zeros_like(yaw)
+    return (t, torch.stack([height, width, length], dim=-1),
+            torch.stack([zeros, zeros, yaw], dim=-1))
+
+
+# -- yaw-aware 3D IoU (host numpy; validation and evaluation) ---------------
+
+def _polygon_clip(subject: np.ndarray, clip: np.ndarray) -> np.ndarray:
+    """Sutherland-Hodgman clip of polygon ``subject`` by the convex
+    ``clip``; both (K, 2), clockwise or counter-clockwise."""
+    def inside(p, a, b):
+        return (b[0] - a[0]) * (p[1] - a[1]) - (b[1] - a[1]) * (p[0] - a[0]) >= 0
+
+    def intersect(p1, p2, a, b):
+        dc = a - b
+        dp = p1 - p2
+        n1 = a[0] * b[1] - a[1] * b[0]
+        n2 = p1[0] * p2[1] - p1[1] * p2[0]
+        denom = dc[0] * dp[1] - dc[1] * dp[0]
+        return np.array([(n1 * dp[0] - n2 * dc[0]) / denom,
+                         (n1 * dp[1] - n2 * dc[1]) / denom])
+
+    area2 = 0.0                       # make the clip polygon CCW
+    for i in range(len(clip)):
+        a, b = clip[i], clip[(i + 1) % len(clip)]
+        area2 += a[0] * b[1] - b[0] * a[1]
+    if area2 < 0:
+        clip = clip[::-1]
+
+    output = list(subject)
+    for i in range(len(clip)):
+        a, b = clip[i], clip[(i + 1) % len(clip)]
+        input_list, output = output, []
+        if not input_list:
+            break
+        s = input_list[-1]
+        for p in input_list:
+            if inside(p, a, b):
+                if not inside(s, a, b):
+                    output.append(intersect(s, p, a, b))
+                output.append(p)
+            elif inside(s, a, b):
+                output.append(intersect(s, p, a, b))
+            s = p
+    return np.array(output) if output else np.zeros((0, 2))
+
+
+def _polygon_area(poly: np.ndarray) -> float:
+    if len(poly) < 3:
+        return 0.0
+    x, y = poly[:, 0], poly[:, 1]
+    return 0.5 * abs(np.dot(x, np.roll(y, 1)) - np.dot(y, np.roll(x, 1)))
+
+
+def box3d_intersection(box_a: np.ndarray, box_b: np.ndarray) -> float:
+    """Intersection volume of two (3, 8) corner arrays (yaw-only
+    rotation): the z overlap times the clipped bottom faces' area."""
+    min_h_a, max_h_a = np.min(box_a[2]), np.max(box_a[2])
+    min_h_b, max_h_b = np.min(box_b[2]), np.max(box_b[2])
+    z_inter = max(0.0, min(max_h_a, max_h_b) - max(min_h_a, min_h_b))
+    if z_inter == 0:
+        return 0.0
+    clipped = _polygon_clip(box_a[0:2, 0:4].T, box_b[0:2, 0:4].T)
+    xy_inter = _polygon_area(clipped)
+    if xy_inter == 0:
+        return 0.0
+    return float(z_inter * xy_inter)
+
+
+def boxes3d_score_iou(gt_boxes3d: np.ndarray, pre_boxes3d: np.ndarray,
+                      cfg: Config = _default_cfg) -> float:
+    """Aggregate 3D IoU of predictions against ground truth: the sum of
+    each gt box's best intersection over the union of the total
+    volumes."""
+    gt_boxes3d = np.asarray(gt_boxes3d)
+    pre_boxes3d = np.asarray(pre_boxes3d)
+    if pre_boxes3d.shape[0] == 0:
+        return 0.0
+
+    def volume(boxes):
+        _, size, _ = boxes3d_decompose(torch.tensor(boxes,
+                                                    dtype=torch.float32), cfg)
+        return float(np.sum(np.prod(size.numpy(), axis=1)))
+
+    gt_vol, pre_vol = volume(gt_boxes3d), volume(pre_boxes3d)
+    inters = np.zeros((gt_boxes3d.shape[0], pre_boxes3d.shape[0]))
+    for j in range(gt_boxes3d.shape[0]):
+        for i in range(pre_boxes3d.shape[0]):
+            inters[j, i] = box3d_intersection(gt_boxes3d[j].T,
+                                              pre_boxes3d[i].T)
+    inter = float(np.sum(np.max(inters, axis=1)))
+    union = gt_vol + pre_vol - inter
+    return inter / union if union > 0 else 0.0

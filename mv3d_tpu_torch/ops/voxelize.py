@@ -344,6 +344,26 @@ def _top_s2d2p(points: torch.Tensor, cfg: Config,
     return top, h4 + inten4 + dens4
 
 
+def front_pixels(points: torch.Tensor, cfg: Config = _default_cfg,
+                 num_points: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, N, 4) f32 -> (B, N) int64 front-view pixel of each point
+    (column * height + row), ``width * height`` where the point is cropped
+    or falls outside the view."""
+    f = cfg.front
+    valid = _crop_mask(points, cfg, num_points)
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    # int() truncation toward zero, as the f32 -> int32 cast
+    pc = (torch.atan2(y, x) / f32c(f.angular_res, x)).to(torch.int32)
+    pr = (torch.atan2(z, torch.sqrt(x ** 2 + y ** 2))
+          / f32c(f.vertical_res, x)).to(torch.int32)
+    valid &= (pc > f.c_min) & (pc < f.c_max) & (pr > f.r_min) & (pr < f.r_max)
+    pc = pc + f.c_offset
+    pr = pr + f.r_offset
+    valid &= (pc >= 0) & (pc < f.width) & (pr >= 0) & (pr < f.height)
+    return torch.where(valid, pc * f.height + pr,
+                       f.width * f.height).to(torch.int64)
+
+
 def lidar_to_front_batch(points: torch.Tensor, cfg: Config = _default_cfg,
                          num_points: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
@@ -357,18 +377,9 @@ def lidar_to_front_batch(points: torch.Tensor, cfg: Config = _default_cfg,
     bsz = points.shape[0]
     n_pix = f.width * f.height
     points = points.to(torch.float32)
-    valid = _crop_mask(points, cfg, num_points)
-    x, y, z = points[..., 0], points[..., 1], points[..., 2]
-
-    # int() truncation toward zero, as the f32 -> int32 cast
-    pc = (torch.atan2(y, x) / f32c(f.angular_res, x)).to(torch.int32)
-    pr = (torch.atan2(z, torch.sqrt(x ** 2 + y ** 2))
-          / f32c(f.vertical_res, x)).to(torch.int32)
-    valid &= (pc > f.c_min) & (pc < f.c_max) & (pr > f.r_min) & (pr < f.r_max)
-    pc = pc + f.c_offset
-    pr = pr + f.r_offset
-    valid &= (pc >= 0) & (pc < f.width) & (pr >= 0) & (pr < f.height)
-    pix = torch.where(valid, pc * f.height + pr, n_pix).to(torch.int64)
+    pix = front_pixels(points, cfg, num_points)
+    valid = pix < n_pix
+    z = points[..., 2]
 
     height = torch.clamp(z + f32c(f.velodyne_height, z), min=0.0)
     distance = torch.sqrt(torch.sum(points[..., :4] ** 2, dim=-1))

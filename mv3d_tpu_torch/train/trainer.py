@@ -14,7 +14,9 @@ Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor`` and
   * per-subnet npz checkpoints in the JAX package's layout
     (``save_weights`` / ``load_weights`` / ``clean_weights``).
   * ``Trainer``: one step = augmentation (off by default) -> voxelization
-    (heights on the card, the loader's host aux plane) -> trunks -> RPN ->
+    (heights on the card with the loader's host aux plane in ``"hwc"``;
+    every channel on the card in the folded layouts, which take no host
+    plane) -> trunks (rematerialized with ``train.remat``) -> RPN ->
     targets -> proposals -> fusion -> losses -> Adam on the trained
     subnets only. Frozen subnets still run in train mode and update their
     BatchNorm statistics, as in the JAX step; their parameters get no
@@ -23,23 +25,25 @@ Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor`` and
     optimizer's own step count as optax does; ``grad_clip_norm`` clips by
     the global norm of the trained subnets' gradients
     (``optax.clip_by_global_norm``). Random draws come from a CPU
-    ``torch.Generator`` seeded with ``seed + 1``.
+    ``torch.Generator`` seeded with ``seed + 1``. The loop interleaves a
+    validation step every ``train.validation_every`` iterations (eval-mode
+    losses plus :meth:`Trainer.validation_iou`, the host polygon 3D IoU of
+    the detections against the gt), writes a :class:`MetricsWriter` row
+    per iteration with its phase, and at the checkpoint cadence logs the
+    :class:`Timer`'s time and re-renders the dashboard.
 
 Entry points run on the card unless given ``device="cpu"``; without CUDA
 they raise. Weights come from a seeded ``torch.Generator`` init, from a
 JAX variables tree (:mod:`mv3d_tpu_torch.convert`) or from checkpoints.
 
-Not ported (ROADMAP A6): validation interleave and ``validation_iou``
-(the host polygon IoU), ``MetricsWriter`` and the dashboard, debug image
-dumps, ``remat``, the orbax backend, ``debug_mode``; training in the
-folded view layouts (``Trainer`` raises for them).
+Not ported (ROADMAP queue A): debug image dumps, the orbax backend,
+``debug_mode`` / ``debug_dump``.
 """
 
 from __future__ import annotations
 
 import math
 import os
-import sys
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -49,8 +53,14 @@ from ..config import Config, cfg as _default_cfg
 from ..convert import load_variables, subnet_state_dict, subnet_variables
 from ..models.mv3d_net import MV3DNet, total_loss
 from ..models.nets import SUBNET_NAMES
+from ..ops.boxes3d import boxes3d_score_iou
 from ..ops.detect import Detections
+from ..ops.quantize import dequantize_points
 from ..ops.voxelize import lidar_to_front_batch, lidar_to_top_batch
+from ..utils.dashboard import render_dashboard
+from ..utils.logger import Logger
+from ..utils.metrics import MetricsWriter
+from ..utils.timer import Timer
 from .augment import augment_batch
 from .checkpoint import SubnetCheckpointer, load_progress, save_progress
 from .targets import draw_noise
@@ -69,10 +79,15 @@ def resolve_device(device=None) -> torch.device:
 def _prepare_views(batch: Dict[str, torch.Tensor], cfg: Config,
                    use_front: bool) -> Dict[str, torch.Tensor]:
     """Voxelize a raw-point batch on its device (heights only when the
-    batch carries the host's ``top_aux``); precomputed views pass."""
+    batch carries the host's ``top_aux``); a quantized batch
+    (``points_q``/``refl_q``) is dequantized first; precomputed views
+    pass."""
     if "top" in batch:
         return batch
     batch = dict(batch)
+    if "points_q" in batch:
+        batch["points"] = dequantize_points(batch.pop("points_q"),
+                                            batch.pop("refl_q"), cfg)
     pts, num = batch["points"], batch.get("num_points")
     batch["top"], batch["top_occ"] = lidar_to_top_batch(
         pts, cfg, num, aux=batch.pop("top_aux", None), return_occ=True)
@@ -118,6 +133,7 @@ class MV3D:
         self.device = resolve_device(device)
         self.tag = log_tag
         self.log_dir = log_dir
+        self._logger: Optional[Logger] = None
         self.model = MV3DNet(cfg)
         if self._f32_master:
             self.model.master_weights_f32()
@@ -131,12 +147,17 @@ class MV3D:
                               for name in SUBNET_NAMES}
 
     def log(self, message: str) -> None:
-        """Write to stdout and append to ``<log_dir>/log.txt``."""
-        sys.stdout.write(message)
-        sys.stdout.flush()
-        os.makedirs(self.log_dir, exist_ok=True)
-        with open(os.path.join(self.log_dir, "log.txt"), "a") as f:
-            f.write(message)
+        """Write to stdout and append to ``<log_dir>/log.txt`` (opened at
+        the first message)."""
+        if self._logger is None:
+            self._logger = Logger(os.path.join(self.log_dir, "log.txt"))
+        self._logger.write(message)
+
+    def close(self) -> None:
+        """Close the log file (and a trainer's metrics log)."""
+        if self._logger is not None:
+            self._logger.close()
+            self._logger = None
 
     # -- weights ------------------------------------------------------------
 
@@ -236,10 +257,13 @@ class Predictor(MV3D):
 
 class Trainer(MV3D):
     """Staged trainer over any dataset exposing ``load() -> batch dict``
-    (raw ``points`` + ``num_points`` [+ ``top_aux``], or precomputed
-    ``top``/``front`` views; ``rgb``; ``gt_boxes3d`` (B, G, 8, 3),
-    ``gt_labels`` (B, G), ``gt_mask`` (B, G)), e.g. a
-    :class:`mv3d_tpu_torch.data.loader.BatchLoader`."""
+    (raw ``points`` + ``num_points`` [+ ``top_aux``], or ``points_q`` +
+    ``refl_q``, or precomputed ``top``/``front`` views; ``rgb``;
+    ``gt_boxes3d`` (B, G, 8, 3), ``gt_labels`` (B, G), ``gt_mask`` (B,
+    G)), e.g. a :class:`mv3d_tpu_torch.data.loader.BatchLoader`, with an
+    optional ``validation_set`` of the same kind for the loop's
+    validation steps. The metrics JSONL is
+    ``<log_dir>/metrics_<log_tag>.jsonl``."""
 
     _f32_master = True
 
@@ -251,17 +275,6 @@ class Trainer(MV3D):
                  checkpoint_dir: str = "checkpoint", log_dir: str = "log",
                  seed: int = 0, device=None,
                  variables: Optional[Mapping[str, Any]] = None):
-        if validation_set is not None:
-            raise NotImplementedError(
-                "the validation interleave (validation_iou, the host "
-                "polygon IoU) is not ported (ROADMAP A6)")
-        if cfg.train.remat:
-            raise NotImplementedError("train.remat is not ported "
-                                      "(ROADMAP A6)")
-        if cfg.pipeline.view_layout != "hwc":
-            raise NotImplementedError(
-                f"view_layout={cfg.pipeline.view_layout!r}: training in the "
-                f"folded view layouts is not ported (ROADMAP A9)")
         super().__init__(cfg, device=device, seed=seed, variables=variables,
                          log_tag=log_tag, checkpoint_dir=checkpoint_dir,
                          log_dir=log_dir)
@@ -269,7 +282,9 @@ class Trainer(MV3D):
             raise ValueError(f"train_targets {train_targets!r} must be a "
                              f"non-empty subset of {SUBNET_NAMES}")
         self.train_set = train_set
+        self.validation_set = validation_set
         self.train_targets = tuple(train_targets)
+        self.metrics = MetricsWriter(log_dir, tag=log_tag)
         self.schedule = lr_schedule(
             cfg, cfg.train.lr if lr is None else lr)
 
@@ -339,27 +354,79 @@ class Trainer(MV3D):
         self.last_targets = (aux["rpn_targets"], aux["fusion_targets"])
         return {k: float(v.detach()) for k, v in loss_dict.items()}
 
+    def close(self) -> None:
+        super().close()
+        self.metrics.close()
+
+    def validation_iou(self, batch: Dict[str, np.ndarray],
+                       score_threshold: Optional[float] = None) -> float:
+        """Detection quality of one validation batch: predict from its
+        points (every view channel on the card, no host plane, as the JAX
+        package does) and score each frame's live detections against its
+        positive gt with :func:`boxes3d_score_iou`. Frames without
+        positive gt are skipped; returns the mean (0.0 if none is left).
+        The score gate defaults to ``rcnn.score_threshold``."""
+        if "points_q" in batch:
+            points = dequantize_points(torch.from_numpy(batch["points_q"]),
+                                       torch.from_numpy(batch["refl_q"]),
+                                       self.cfg)
+        else:
+            points = batch["points"]
+        num = batch.get("num_points")
+        if num is None:
+            num = np.full(points.shape[0], points.shape[1], np.int32)
+        dets = self.predict_from_points(points, num, batch["rgb"],
+                                        score_threshold=score_threshold)
+        det_mask = dets.mask.cpu().numpy()
+        det_boxes = dets.boxes3d.float().cpu().numpy()
+        gt3d = np.asarray(batch["gt_boxes3d"])
+        gm = np.asarray(batch["gt_mask"]) & (np.asarray(batch["gt_labels"])
+                                             > 0)
+        ious = [boxes3d_score_iou(gt3d[i][gm[i]],
+                                  det_boxes[i][det_mask[i]], self.cfg)
+                for i in range(det_boxes.shape[0]) if gm[i].any()]
+        return float(np.mean(ious)) if ious else 0.0
+
     def __call__(self, max_iter: int = 1000) -> Dict[str, float]:
-        """The training loop: skip batches without positive gt, log each
-        step to ``<log_dir>/log.txt``, save the trained subnets every
-        ``train.ckpt_every`` steps and at the end, and on a NaN loss save
-        ``<subnet>-crash.npz`` and raise ``FloatingPointError``."""
-        ckpt_every = self.cfg.train.ckpt_every
+        """The training loop: every ``train.validation_every``-th iteration
+        (not the first) is a validation step on ``validation_set`` when
+        there is one; batches without positive gt are skipped; each step
+        is logged to ``<log_dir>/log.txt`` (validation lines with the IoU)
+        and written to the metrics JSONL with its phase; every
+        ``train.ckpt_every`` steps the trained subnets are saved, the time
+        since the last save logged and the dashboard re-rendered (a
+        failed render is logged, never raised), and at the end they are
+        saved again. On a NaN loss ``<subnet>-crash.npz`` is saved and
+        ``FloatingPointError`` raised."""
+        cfg = self.cfg
+        validation_step = cfg.train.validation_every
+        ckpt_every = cfg.train.ckpt_every
+        timer = Timer()
         self.log("iter |  top_cls_loss   reg_loss   |  fuse_cls_loss  "
                  "reg_loss  |\n")
         last: Dict[str, float] = {}
         init_step = self.n_global_step
         for it in range(init_step, init_step + max_iter):
-            batch = self.train_set.load()
+            is_validation = (self.validation_set is not None
+                             and it % validation_step == 0 and it > 0)
+            data_set = self.validation_set if is_validation \
+                else self.train_set
+            batch = data_set.load()
             if batch is None:
                 continue
             if not np.any(np.asarray(batch["gt_labels"]) *
                           np.asarray(batch["gt_mask"])):
                 continue
-            last = self.fit_iteration(batch)
-            self.log("%10s: %5d  %0.5f  %0.5f  |  %0.5f  %0.5f\n" % (
-                "training", it, last["top_cls_loss"], last["top_reg_loss"],
-                last["fuse_cls_loss"], last["fuse_reg_loss"]))
+            last = self.fit_iteration(batch, is_validation=is_validation)
+            step_name = "validation" if is_validation else "training"
+            line = "%10s: %5d  %0.5f  %0.5f  |  %0.5f  %0.5f" % (
+                step_name, it, last["top_cls_loss"], last["top_reg_loss"],
+                last["fuse_cls_loss"], last["fuse_reg_loss"])
+            if is_validation:
+                last["iou"] = self.validation_iou(batch)
+                line += "  |  iou %0.5f" % last["iou"]
+            self.log(line + "\n")
+            self.metrics.write(it, last, phase=step_name)
             if np.any(np.isnan(list(last.values()))):
                 # the post-update weights are likely poisoned: save them
                 # where latest_step() never looks, keep progress as is
@@ -376,6 +443,12 @@ class Trainer(MV3D):
             if it > 0 and it % ckpt_every == 0:
                 self.save_weights(self.train_targets, it)
                 save_progress(self.log_dir, self.tag, self.n_global_step)
+                self.log("It takes %0.2f secs to train %d iterations.\n" % (
+                    timer.time_diff_per_n_loops(), ckpt_every))
+                try:
+                    render_dashboard(self.log_dir)
+                except Exception as e:  # observability never kills training
+                    self.log(f"dashboard render failed: {e}\n")
         self.save_weights(self.train_targets, self.n_global_step)
         save_progress(self.log_dir, self.tag, self.n_global_step)
         return last

@@ -28,18 +28,26 @@ import chip_smoke
 from __graft_entry__ import _tiny_config
 from mv3d_tpu.config import kitti_config
 from mv3d_tpu.models.mv3d_net import MV3DNet as JaxMV3DNet
+from mv3d_tpu.models.mv3d_net import (
+    project_to_rgb_roi as jax_project_to_rgb_roi)
+from mv3d_tpu.models.mv3d_net import total_loss as jax_total_loss
 from mv3d_tpu.ops import roi_align as jroi
 from mv3d_tpu.ops import voxelize as jvox
 from mv3d_tpu.ops import voxelize_pallas
+from mv3d_tpu.train.trainer import _prepare_views as jax_prepare_views
 from mv3d_tpu_torch import convert, serving_config
 from mv3d_tpu_torch.models.mv3d_net import MV3DNet
 from mv3d_tpu_torch.ops import roi_align as troi
 from mv3d_tpu_torch.ops import voxelize as tvox
 from mv3d_tpu_torch.ops import voxelize_padded
-from mv3d_tpu_torch.train.trainer import MV3D, Trainer
+from mv3d_tpu_torch.data import loader as tloader
+from mv3d_tpu_torch.models.mv3d_net import project_to_rgb_roi, total_loss
+from mv3d_tpu_torch.models.nets import SUBNET_NAMES, TOP_VIEW_RPN
+from mv3d_tpu_torch.train.trainer import MV3D, Trainer, _prepare_views
 
 from test_torch_config import to_port_config
 from test_torch_models import randomize_bn
+from test_torch_train import _flax_grads, _leaves, noise_from_key
 
 torch.set_num_threads(2)
 
@@ -333,11 +341,18 @@ def test_folded_layouts_refuse_host_aux(layout):
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_trainer_refuses_folded_layouts(layout, tmp_path):
+def test_trainer_refuses_folded_layouts(layout, tmp_path, train_batch):
+    """The trainer refuses the folded layouts only with the host aux plane
+    (as the JAX voxelizer does: they compute every channel on the card),
+    and trains in them without it."""
     cfg = to_port_config(with_pipeline(TINY, view_layout=layout))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(None, cfg=cfg, device="cpu", checkpoint_dir=str(tmp_path),
-                log_dir=str(tmp_path))
+    tr = Trainer(None, cfg=cfg, device="cpu", checkpoint_dir=str(tmp_path),
+                 log_dir=str(tmp_path))
+    aux = np.zeros((2, TINY.top.xn, TINY.top.yn, 2), np.float32)
+    with pytest.raises(ValueError, match="aux"):
+        tr.fit_iteration(dict(train_batch, top_aux=aux))
+    losses = tr.fit_iteration(train_batch)
+    assert np.isfinite(list(losses.values())).all()
 
 
 @pytest.mark.parametrize("change", [
@@ -601,3 +616,102 @@ def test_split_stem_weights_round_trip(serving_pair, tmp_path):
                                       fresh.model.subnets[name]
                                       .state_dict().items()):
             assert ka == kb and torch.equal(va, vb), (name, ka)
+
+
+# -- training in the folded layouts ------------------------------------------
+
+@pytest.fixture(scope="module")
+def train_batch():
+    """Two synthetic frames with planted cars, without the host aux plane
+    (the folded layouts compute every channel on the card)."""
+    cfg = to_port_config(with_pipeline(TINY, host_aux_channels=False))
+    drive = chip_smoke.SynthDrive(np.random.RandomState(2), cfg, 2, 3000,
+                                  cars=(2, 3))
+    batch = tloader.frames_to_batch(drive.frames, cfg)
+    return {k: v for k, v in batch.items() if k != "tags"}
+
+
+@pytest.fixture(scope="module", params=LAYOUTS)
+def folded_training(request, train_batch):
+    """The RPN stage's training forward and gradients in a folded layout:
+    the JAX step (views made eagerly, one jitted value_and_grad, its own
+    draws) and the port's on the converted weights and the same draws."""
+    layout = request.param
+    cfg = with_pipeline(TINY, view_layout=layout, host_aux_channels=False)
+    pcfg = to_port_config(cfg)
+    jm = JaxMV3DNet(cfg)
+    variables = randomize_bn(jax.jit(jm.init_variables)(
+        jax.random.PRNGKey(0)), seed=3)
+    key = jax.random.PRNGKey(11)
+
+    @jax.jit
+    def ref(variables, batch, key):
+        def f(p_rpn):
+            var = {n: dict(variables[n]) for n in SUBNET_NAMES}
+            var[TOP_VIEW_RPN]["params"] = p_rpn
+            ld, aux = jm.forward_train(var, batch, key, train=True)
+            return jax_total_loss(ld, (TOP_VIEW_RPN,), cfg), (ld, aux)
+
+        (_, (ld, aux)), g = jax.value_and_grad(f, has_aux=True)(
+            variables[TOP_VIEW_RPN]["params"])
+        return ld, aux["rpn_targets"], aux["fusion_targets"], g
+
+    views = jax_prepare_views({k: jnp.asarray(v)
+                               for k, v in train_batch.items()}, cfg)
+    ld, rpn_tg, fus_tg, grads = jax.tree.map(np.asarray,
+                                             ref(variables, views, key))
+    model = MV3DNet(pcfg)
+    convert.load_variables(model, variables)
+    batch = _prepare_views({k: torch.from_numpy(v)
+                            for k, v in train_batch.items()}, pcfg, False)
+    noise = {k: torch.from_numpy(v)
+             for k, v in noise_from_key(key, 2, cfg).items()}
+    pld, aux = model.forward_train(batch, noise)
+    total_loss(pld, (TOP_VIEW_RPN,), pcfg).backward(
+        inputs=list(model.top_rpn.parameters()))
+    return dict(layout=layout, want=(ld, rpn_tg, fus_tg, grads),
+                got=(pld, aux["rpn_targets"], aux["fusion_targets"],
+                     _flax_grads(model.top_rpn)))
+
+
+def test_folded_training_losses_and_targets_match_jax(folded_training):
+    """Target masks and labels exact; the RPN losses within rtol 1e-4
+    (tests/test_torch_train.py's hwc case); the fusion losses within rtol
+    1e-4 where no rgb ROI corner moved and within 1e-2 where one did (a
+    last-bit difference in a proposal moves an int-truncated corner by a
+    pixel and with it that ROI's pooled rgb features; ``chip_smoke``'s
+    card-against-CPU step holds them the same way). On this batch corners
+    move in both layouts."""
+    (ld, rpn_tg, fus_tg, _), (pld, prpn, pfus, _) = (
+        folded_training["want"], folded_training["got"])
+    assert rpn_tg.pos_mask.sum() > 0 and fus_tg.pos_mask.sum() > 0
+    got = project_to_rgb_roi(pfus.rois3d.detach(), to_port_config(TINY))
+    want = np.stack([np.asarray(jax_project_to_rgb_roi(r, TINY))
+                     for r in fus_tg.rois3d])
+    moved = int((got.numpy() != want).sum())
+    for k in ("cls_mask", "labels", "pos_mask"):
+        np.testing.assert_array_equal(getattr(prpn, k).numpy(),
+                                      getattr(rpn_tg, k), k)
+    for k in ("mask", "labels", "pos_mask"):
+        np.testing.assert_array_equal(getattr(pfus, k).numpy(),
+                                      getattr(fus_tg, k), k)
+    for k, want in ld.items():
+        tol = 1e-4 if k.startswith("top") or not moved else 1e-2
+        np.testing.assert_allclose(pld[k].item(), want, rtol=tol,
+                                   err_msg=k)
+
+
+def test_folded_rpn_gradients_match_jax(folded_training):
+    """Every top_view_rpn gradient within 1e-3 of its tensor's max |g|
+    (tests/test_torch_train.py's RPN stage), the stem's included: the
+    split stem's backward (heights lanes, aux plane, shared BatchNorm) in
+    s2d2p, the prefolded stem's in s2d2."""
+    want = dict(_leaves(folded_training["want"][3]))
+    got = dict(_leaves(folded_training["got"][3]))
+    assert set(got) == set(want)
+    stem = [k for k in want if "stem" in k or k.startswith("trunk/ConvBnRelu_0")]
+    assert len(stem) >= (4 if folded_training["layout"] == "s2d2p" else 3)
+    for name, w in want.items():
+        assert np.abs(w).max() > 0, name
+        np.testing.assert_allclose(got[name], w, rtol=0,
+                                   atol=1e-3 * np.abs(w).max(), err_msg=name)

@@ -138,14 +138,18 @@ def test_predict_from_points_with_host_aux(both):
 
 
 _NO_JAX = r"""
-import dataclasses, io, sys, tempfile, threading, urllib.request
+import dataclasses, io, json, os, sys, tempfile, threading, urllib.request
 import numpy as np
+import torch
 import chip_smoke
 import mv3d_tpu_torch
 from mv3d_tpu_torch import config, convert, serving
 from mv3d_tpu_torch.cli import common, export as cli_export
 from mv3d_tpu_torch.cli import serve as cli_serve
-from mv3d_tpu_torch.data import host_aux, loader
+from mv3d_tpu_torch.cli import train as cli_train
+from mv3d_tpu_torch.data import host_aux, kitti, loader, tracklets
+from mv3d_tpu_torch.utils import (dashboard, datacheck, logger, metrics, png,
+                                  timer)
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
                                 nms, proposal, quantize, roi_align, sort,
                                 sort_bitonic, voxelize, voxelize_heights,
@@ -153,6 +157,7 @@ from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
 from mv3d_tpu_torch.models import backbone, mv3d_net, nets
 from mv3d_tpu_torch.train import (augment, checkpoint, losses, targets,
                                   trainer)
+torch.set_num_threads(2)        # as the test processes: they share cores
 cfg = mv3d_tpu_torch.kitti_config()
 cfg = dataclasses.replace(
     cfg, top=dataclasses.replace(cfg.top, x_max=16.0, y_min=-6.0, y_max=6.0,
@@ -193,6 +198,23 @@ with urllib.request.urlopen(req, timeout=120) as r:
         assert z["boxes3d"].shape[1:] == (8, 3)
 srv.shutdown()
 srv.server_close()
+root = d + "/kitti"
+chip_smoke.write_kitti_dir(root, chip_smoke.SynthDrive(rng, cfg, 4, 3000),
+                           cfg, 2, image_sizes=((60, 90), (64, 96)))
+assert datacheck.check_kitti_object_dir(root)["ok"]
+with open(d + "/tiny.json", "w") as f:
+    json.dump({"top": {"x_max": 16.0, "y_min": -6.0, "y_max": 6.0,
+                       "x_div": 0.2, "y_div": 0.2},
+               "pipeline": {"max_points": 2048},
+               "image_width": 96, "image_height": 64}, f)
+cli_train.main(["--kitti-object", root, "--device", "cpu", "-b", "2",
+                "--train-split", root + "/ImageSets/train.txt",
+                "--val-split", root + "/ImageSets/val.txt",
+                "--loader-workers", "2", "-i", "3", "--config",
+                d + "/tiny.json", "--set", "train.validation_every", "2",
+                "--set", "train.ckpt_every", "2", "--checkpoint-dir",
+                d + "/ck", "--log-dir", d + "/lg", "-n", "t"])
+assert os.path.exists(d + "/lg/dashboard.html")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "mv3d_tpu"))
 assert not bad, bad
@@ -202,9 +224,10 @@ print("ok")
 
 def test_port_never_imports_jax():
     """Every port module, its CLI and ``chip_smoke`` import, predict (the
-    hwc and the s2d2p serving configuration), train, and export an
-    artifact that answers one HTTP /predict request, on the CPU, without
-    loading jax, flax or the JAX package."""
+    hwc and the s2d2p serving configuration), train, export an artifact
+    that answers one HTTP /predict request, and run the train command on
+    a tiny KITTI directory written to disk, on the CPU, without loading
+    jax, flax or the JAX package."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
