@@ -40,7 +40,13 @@ hand-written kernels against its plain PyTorch version:
     s2d2p configuration without the host aux plane (K2 on every
     training step, eval step and validation prediction) and in hwc with
     the host aux plane (K3 on every training and eval step, K1 on every
-    validation prediction).
+    validation prediction);
+  * the evaluation commands over that directory and the checkpoints the
+    training command wrote: ``mv3d_tpu_torch.cli.test`` (every
+    subcommand; K1 per frame in hwc, K2 in s2d2p), ``cli.preprocess``
+    (K1 per batch), ``cli.tracking --eval`` over a raw drive (K1 per
+    frame), ``cli.dashboard`` and ``cli.rehearsal --synthetic-fixture``
+    (K3 per training step, K1 per prediction).
 
 Phases:
 
@@ -98,7 +104,21 @@ Phases:
      after) and held to the layout's rules, its losses finite, its
      validation rows carry ``iou`` in log.txt and the metrics JSONL, the
      dashboard and a checkpoint of every subnet exist;
-  7. time each kernel against its plain version and the one PyTorch call
+  7. the evaluation commands (``eval-cmd``) over phase 6's directory and
+     checkpoints, each in process with the kernel counts set to 0 just
+     before and held to its frames just after, its wall time and frames/s
+     printed: ``cli.test`` test_mv3d over the 8 frames, then in f32 on
+     2 frames against the same command with ``--device cpu`` (equal
+     detection counts, probs within 1e-3 and boxes3d within 1e-2 m, the
+     serving phase's tolerance when an rgb ROI corner moves), export_kitti
+     (lines parse back to the detections), test_single_mv3d, test_rpn,
+     test_3dop, test_rpn_target, test_front and probe_rpn in hwc, and
+     test_mv3d + export_kitti in s2d2p; ``cli.preprocess`` on the card,
+     its top views bit-equal to ``--device cpu``'s; a raw drive (4
+     frames, ``tracklet_labels.xml``) through ``cli.tracking --eval``;
+     ``cli.dashboard``; ``cli.rehearsal --synthetic-fixture -i 2`` at
+     full width; every output file is read back;
+  8. time each kernel against its plain version and the one PyTorch call
      that computes the same function, where there is one (CUDA events, the
      wrapper included), at B=1, 2 and 8, beside the kernel's device time
      alone (CUDA events over calls enqueued behind a spin kernel, so they
@@ -123,7 +143,7 @@ Phases:
      disk loader alone at 1, 2 and 4 workers and one thread's time per
      frame by stage (velodyne, label, PNG decode, resize, crop and pad,
      aux plane);
-  8. only with ``--profile DIR``: torch.profiler over a few requests of
+  9. only with ``--profile DIR``: torch.profiler over a few requests of
      each serving configuration at B=1 and B=8 and a few training steps
      (the in-memory hwc step, the disk-fed s2d2p and hwc steps):
      the card's busy time per request or step (union of kernel
@@ -133,9 +153,10 @@ Phases:
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The line before the last is the kernels' JSON record (each
-kernel's launches summed over the paths counted: K1 serving and hwc
-validation predictions, K2 serving and the s2d2p command, K3 the
-training phase and the hwc command); the last is ``{"ok": true,
+kernel's launches summed over the paths counted: K1 serving, hwc
+validation predictions and the evaluation commands, K2 serving, the
+s2d2p command and the s2d2p test commands, K3 the training phase, the
+hwc command and the rehearsal); the last is ``{"ok": true,
 "device": {...}}``. Checkpoints, serving artifacts, logs and the KITTI
 directory go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the
 checkout and are removed. Run from the repository root:
@@ -865,18 +886,25 @@ def check_command_outputs(log_dir, ckpt_dir, tag, rows):
     return val
 
 
-def run_train_main(argv, counters):
-    """``mv3d_tpu_torch.cli.train.main(argv)`` in process, every kernel's
-    count set to 0 just before and read just after. Returns (seconds,
-    counts)."""
+def run_main(main, argv, counters):
+    """A command's ``main(argv)`` in process, every kernel's count set to
+    0 just before and read just after. Returns (seconds, counts, what
+    ``main`` returned)."""
     import torch
-    from mv3d_tpu_torch.cli import train as train_cli
     for c in counters.values():
         c.launches = 0
     t0 = time.time()
-    train_cli.main(list(argv))
+    out = main(list(argv))
     torch.cuda.synchronize()
-    return time.time() - t0, {k: c.launches for k, c in counters.items()}
+    return (time.time() - t0, {k: c.launches for k, c in counters.items()},
+            out)
+
+
+def run_train_main(argv, counters):
+    """``mv3d_tpu_torch.cli.train.main(argv)`` through :func:`run_main`.
+    Returns (seconds, counts)."""
+    from mv3d_tpu_torch.cli import train as train_cli
+    return run_main(train_cli.main, argv, counters)[:2]
 
 
 def _expect(counts, want, label):
@@ -984,6 +1012,272 @@ def train_command_phase(rng, cfg, dev, work_dir, counters):
         f"exited 0 in {time.time() - t0:.1f} s with {len(rows)} rows, "
         f"validation iou and every output on disk")
     return data_dir, total
+
+
+def write_raw_drive(root, drive, cfg, date="2011_09_26", drive_id="0001"):
+    """Write ``drive``'s frames (a :class:`SynthDrive`) as a KITTI raw
+    drive, ``<root>/<date>/<date>_drive_<id>_sync/{velodyne_points/data,
+    image_02/data}`` (PNGs at the model's rgb size), with a
+    ``tracklet_labels.xml`` (``data/tracklets.write_tracklets``) holding
+    each frame's gt cars as one-pose tracklets."""
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch.data import tracklets
+    from mv3d_tpu_torch.ops.boxes3d import boxes3d_decompose
+    from mv3d_tpu_torch.utils.png import write_png
+    base = os.path.join(root, date, f"{date}_drive_{drive_id}_sync")
+    for sub in ("velodyne_points", "image_02"):
+        os.makedirs(os.path.join(base, sub, "data"), exist_ok=True)
+    tracks = []
+    for i, f in enumerate(drive.frames):
+        f.points.astype(np.float32).tofile(os.path.join(
+            base, "velodyne_points", "data", f"{i:010d}.bin"))
+        write_png(os.path.join(base, "image_02", "data", f"{i:010d}.png"),
+                  f.rgb)
+        t, size, rot = (x.numpy() for x in boxes3d_decompose(
+            torch.from_numpy(f.gt_boxes3d), cfg))
+        for c, (h, w, l), yaw in zip(t, size, rot[:, 2]):
+            tk = tracklets.Tracklet("Car", float(h), float(w), float(l),
+                                    first_frame=i)
+            tk.poses.append({"tx": float(c[0]), "ty": float(c[1]),
+                             "tz": float(c[2]), "rx": 0.0, "ry": 0.0,
+                             "rz": float(yaw)})
+            tracks.append(tk)
+    tracklets.write_tracklets(os.path.join(base, "tracklet_labels.xml"),
+                              tracks)
+    return base
+
+
+def _detections(out_dir, tags):
+    """{tag: (boxes3d, probs)} from a test_mv3d output directory, checked
+    for shape and finiteness."""
+    import numpy as np
+    dets = {}
+    for tag in tags:
+        b = np.load(os.path.join(out_dir, f"{tag}_boxes3d.npy"))
+        p = np.load(os.path.join(out_dir, f"{tag}_probs.npy"))
+        if not (b.ndim == 3 and b.shape[1:] == (8, 3) and p.shape == (
+                len(b),) and np.isfinite(b).all() and np.isfinite(p).all()):
+            raise AssertionError(f"test_mv3d {tag}: detections of shape "
+                                 f"{b.shape}/{p.shape} or not finite")
+        dets[tag] = (b, p)
+    return dets
+
+
+def _check_kitti_txt(out_dir, dets, cfg, label):
+    """export_kitti's files: one parseable line per detection, in score
+    order, whose boxes parse back near the detections."""
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch.data.kitti import kitti_label_to_lidar_box3d
+    from mv3d_tpu_torch.ops.boxes3d import boxes3d_decompose
+    n = 0
+    for tag, (boxes, probs) in dets.items():
+        with open(os.path.join(out_dir, tag + ".txt")) as f:
+            lines = f.read().splitlines()
+        if len(lines) != len(boxes):
+            raise AssertionError(f"{label} {tag}: {len(lines)} lines for "
+                                 f"{len(boxes)} detections")
+        if not lines:
+            continue
+        back, _ = kitti_label_to_lidar_box3d(lines, "Car",
+                                             positive_only=False, cfg=cfg)
+        order = np.argsort(-probs)
+        t0 = boxes3d_decompose(torch.from_numpy(boxes[order]), cfg)[0]
+        t1 = boxes3d_decompose(torch.from_numpy(back), cfg)[0]
+        if not (t0 - t1).abs().max().item() < 0.05:
+            raise AssertionError(f"{label} {tag}: KITTI lines do not parse "
+                                 f"back to the detections")
+        n += len(lines)
+    return n
+
+
+def eval_command_phase(rng, cfg, dev, work_dir, data_dir, counters, card):
+    """The evaluation commands over phase 6's KITTI directory (8 frames)
+    and its checkpoints (tags ``hwc`` and ``s2d2p``), on the card: every
+    ``cli.test`` subcommand in hwc and test_mv3d + export_kitti in
+    s2d2p, ``test_mv3d`` in f32 on the card against the same command on
+    the CPU, ``cli.preprocess`` on the card against the CPU, a raw drive
+    through ``cli.tracking --eval``, ``cli.dashboard`` and
+    ``cli.rehearsal --synthetic-fixture``. Returns {kernel: launches}
+    summed over the commands."""
+    import numpy as np
+    from mv3d_tpu_torch.cli import dashboard as dashboard_cli
+    from mv3d_tpu_torch.cli import preprocess as preprocess_cli
+    from mv3d_tpu_torch.cli import rehearsal as rehearsal_cli
+    from mv3d_tpu_torch.cli import test as test_cli
+    from mv3d_tpu_torch.cli import tracking as tracking_cli
+    from mv3d_tpu_torch.data.kitti import KittiObjectDataset
+    from mv3d_tpu_torch.data.tracklets import parse_tracklets
+    from mv3d_tpu_torch.ops.boxes3d import box3d_compose
+    from mv3d_tpu_torch.utils.png import read_png
+    ckpt = os.path.join(os.path.dirname(work_dir), "train_cmd", "ckpt")
+    tags = KittiObjectDataset(data_dir).tags
+    total = {k: 0 for k in counters}
+    none = {k: 0 for k in counters}
+
+    def run(label, main, argv, want, frames=None):
+        secs, counts, out = run_main(main, argv, counters)
+        _expect(counts, {**none, **want}, label)
+        for k in total:
+            total[k] += counts[k]
+        rate = f", {frames / secs:.2f} frames/s" if frames else ""
+        log(f"phase eval-cmd: {label}: {secs:.2f} s{rate}; launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+            + f" [{card}]")
+        return out
+
+    def test(cmd, tag, out, *extra, config=()):
+        # score gate 0: a few training steps leave every fg prob low
+        return [cmd, "--kitti-object", data_dir, "-n", tag,
+                "--checkpoint-dir", ckpt, "--out-dir",
+                os.path.join(work_dir, out), "--score-threshold", "0.0",
+                *config, *extra]
+
+    # test_mv3d over the 8 frames in the trained hwc configuration (bf16)
+    run("test_mv3d hwc (8 frames)", test_cli.main,
+        test("test_mv3d", "hwc", "mv3d_hwc"), {"voxelize_sweep": 8}, 8)
+    dets = _detections(os.path.join(work_dir, "mv3d_hwc"), tags)
+    # the same command in f32 on the card and on the CPU, 2 frames
+    f32 = ("--set", "model.compute_dtype", "float32")
+    run("test_mv3d hwc f32 (2 frames)", test_cli.main,
+        test("test_mv3d", "hwc", "mv3d_f32", "--limit", "2", config=f32),
+        {"voxelize_sweep": 2}, 2)
+    t0 = time.time()
+    test_cli.main(test("test_mv3d", "hwc", "mv3d_f32_cpu", "--limit", "2",
+                       "--device", "cpu", config=f32))
+    cpu_s = time.time() - t0
+    on_card = _detections(os.path.join(work_dir, "mv3d_f32"), tags[:2])
+    on_cpu = _detections(os.path.join(work_dir, "mv3d_f32_cpu"), tags[:2])
+    worst = [0.0, 0.0]
+    for tag in tags[:2]:
+        (b1, p1), (b0, p0) = on_card[tag], on_cpu[tag]
+        if len(b1) != len(b0) or not len(b0):
+            raise AssertionError(f"test_mv3d f32 {tag}: {len(b1)} "
+                                 f"detections on the card, {len(b0)} on "
+                                 f"the CPU")
+        worst = [max(worst[0], float(np.abs(p1 - p0).max())),
+                 max(worst[1], float(np.abs(b1 - b0).max()))]
+    # the serving phase's tolerance when rgb ROI corners moved by a pixel
+    if not (worst[0] <= 1e-3 and worst[1] <= 1e-2):
+        raise AssertionError(f"test_mv3d f32 card vs CPU: probs "
+                             f"{worst[0]:.3g}, boxes3d {worst[1]:.3g} m")
+    log(f"phase eval-cmd: test_mv3d f32 card vs --device cpu ({cpu_s:.1f} "
+        f"s on the CPU), 2 frames: detections "
+        f"{[len(on_card[t][0]) for t in tags[:2]]} on both; probs max|diff| "
+        f"{worst[0]:.3g} (tol 1e-3), boxes3d {worst[1]:.3g} m (tol 1e-2)")
+
+    run("export_kitti hwc (8 frames)", test_cli.main,
+        test("export_kitti", "hwc", "kitti_hwc"), {"voxelize_sweep": 8}, 8)
+    n_lines = _check_kitti_txt(os.path.join(work_dir, "kitti_hwc"), dets,
+                               cfg, "export_kitti hwc")
+    run("test_single_mv3d hwc", test_cli.main,
+        test("test_single_mv3d", "hwc", "single"), {"voxelize_sweep": 1}, 1)
+    run("test_rpn hwc (2 frames)", test_cli.main,
+        test("test_rpn", "hwc", "rpn", "--limit", "2"),
+        {"voxelize_sweep": 2}, 2)
+    for tag in tags[:2]:
+        rois = np.load(os.path.join(work_dir, "rpn", f"{tag}_proposals.npy"))
+        if not (rois.ndim == 2 and rois.shape[1] == 5 and len(rois)):
+            raise AssertionError(f"test_rpn {tag}: proposals {rois.shape}")
+    props = os.path.join(work_dir, "props")
+    os.makedirs(props, exist_ok=True)
+    np.save(os.path.join(props, f"{tags[0]}_rois3d.npy"), box3d_compose(
+        [[10.0 + 3 * i, -4.0 + 2 * i, -1.7] for i in range(4)],
+        [[1.5, 1.6, 4.0]] * 4, [[0, 0, 0.3 * i] for i in range(4)],
+        cfg).numpy())
+    run("test_3dop hwc (proposals for 1 of 2 frames)", test_cli.main,
+        test("test_3dop", "hwc", "3dop", "--limit", "2", "--proposal-dir",
+             props), {"voxelize_sweep": 1}, 1)
+    _detections(os.path.join(work_dir, "3dop"), tags[:1])
+    run("test_rpn_target hwc (2 frames)", test_cli.main,
+        test("test_rpn_target", "hwc", "rpn_target", "--limit", "2"),
+        {"voxelize_sweep": 2}, 2)
+    run("test_front (2 frames)", test_cli.main,
+        test("test_front", "hwc", "front", "--limit", "2"), {}, 2)
+    run("probe_rpn hwc (2 frames)", test_cli.main,
+        test("probe_rpn", "hwc", "probe", "--limit", "2"),
+        {"voxelize_sweep": 2}, 2)
+    pngs = ([os.path.join(work_dir, "rpn_target", "rpn_target",
+                          f"rpn_target_{i:06d}.png") for i in range(2)]
+            + [os.path.join(work_dir, "front", f"{t}_front.png")
+               for t in tags[:2]]
+            + [os.path.join(work_dir, "probe", f"{i:06d}", name)
+               for i in range(2) for name in ("top.png", "camera.png")])
+    shapes = {read_png(p).shape for p in pngs}
+    front = np.load(os.path.join(work_dir, "front", f"{tags[0]}_front.npy"))
+    if front.shape != cfg.front_shape or not np.isfinite(front).all():
+        raise AssertionError(f"test_front: front view {front.shape}")
+    log(f"phase eval-cmd: hwc outputs parse: {len(tags)} frames of "
+        f"detections ({sum(len(b) for b, _ in dets.values())} in all), "
+        f"{n_lines} KITTI lines parsing back to them, proposals, 3DOP "
+        f"detections, {len(pngs)} PNGs of shapes {sorted(shapes)}")
+    run("test_mv3d s2d2p (2 frames)", test_cli.main,
+        test("test_mv3d", "s2d2p", "mv3d_s2d2p", "--limit", "2",
+             config=SERVED_FLAGS), {"voxelize_padded": 2}, 2)
+    sdets = _detections(os.path.join(work_dir, "mv3d_s2d2p"), tags[:2])
+    run("export_kitti s2d2p (2 frames)", test_cli.main,
+        test("export_kitti", "s2d2p", "kitti_s2d2p", "--limit", "2",
+             config=SERVED_FLAGS), {"voxelize_padded": 2}, 2)
+    _check_kitti_txt(os.path.join(work_dir, "kitti_s2d2p"), sdets, cfg,
+                     "export_kitti s2d2p")
+
+    # preprocess on the card (K1, batches of 4) against the CPU
+    pre = os.path.join(work_dir, "pre")
+    run("preprocess (8 frames, batches of 4)", preprocess_cli.main,
+        ["--kitti-object", data_dir, "-o", pre, "-b", "4"],
+        {"voxelize_sweep": 2}, 8)
+    preprocess_cli.main(["--kitti-object", data_dir, "-o", pre + "_cpu",
+                         "-b", "4", "--device", "cpu", "--no-images"])
+    for tag in tags:
+        with np.load(os.path.join(pre, "top", tag + ".npy.npz")) as a, \
+                np.load(os.path.join(pre + "_cpu", "top",
+                                     tag + ".npy.npz")) as b:
+            if not np.array_equal(a["top_view"], b["top_view"]):
+                raise AssertionError(f"preprocess {tag}: the card's top "
+                                     f"view differs from the CPU's")
+        for sub in ("rgb", "top_image"):
+            read_png(os.path.join(pre, sub, tag + ".png"))
+    log(f"phase eval-cmd: preprocess: the card's {len(tags)} top views "
+        f"bit-equal to the CPU plain path's; rgb and top_image PNGs decode")
+
+    # a raw drive through the tracking command with --eval
+    raw = os.path.join(work_dir, "raw")
+    write_raw_drive(raw, SynthDrive(rng, cfg, 4, 110000), cfg)
+    pred = run("tracking --eval (raw drive, 4 frames)", tracking_cli.main,
+               ["-n", "hwc", "--kitti-raw", raw, "--date", "2011_09_26",
+                "--drive", "0001", "--out-dir", os.path.join(work_dir, "pred"),
+                "--checkpoint-dir", ckpt, "--score-threshold", "0.0",
+                "--eval"], {"voxelize_sweep": 4}, 4)
+    n_tracks = len(parse_tracklets(pred))
+    with open(os.path.join(os.path.dirname(pred), "iou_per_obj.csv")) as f:
+        rows = f.read().splitlines()
+    if rows[0] != "object_type,iou" or not rows[1].startswith("All,"):
+        raise AssertionError(f"tracking --eval: iou_per_obj.csv {rows}")
+    run("dashboard", dashboard_cli.main,
+        [os.path.join(work_dir, "..", "train_cmd", "log_hwc")], {})
+
+    # the rehearsal at full width: two stages of 2 iterations (re-run while
+    # under 10 s), then predictions over its 4 fixture frames
+    rh = os.path.join(work_dir, "rehearsal")
+    secs, counts, res = run_main(rehearsal_cli.main, [
+        "--synthetic-fixture", "--fixture-frames", "4", "-o", rh, "-i", "2",
+        "-b", "2"], counters)
+    steps = len(_metric_rows(os.path.join(rh, "log"), "rehearsal"))
+    _expect(counts, {**none, "voxelize_heights": steps,
+                     "voxelize_sweep": 4}, "rehearsal")
+    for k in total:
+        total[k] += counts[k]
+    with open(os.path.join(rh, "eval", "pr_per_iou.csv")) as f:
+        n_pr = len(f.read().splitlines())
+    if n_pr != 9 or "All" not in res["iou_per_obj"]:
+        raise AssertionError(f"rehearsal: pr_per_iou.csv has {n_pr} lines, "
+                             f"iou_per_obj {res['iou_per_obj']}")
+    log(f"phase eval-cmd: rehearsal --synthetic-fixture -i 2: {secs:.1f} s, "
+        f"{steps} training steps (voxelize_heights {steps}), 4 predictions "
+        f"(voxelize_sweep 4); tracking wrote {n_tracks} tracklets; "
+        f"iou_per_obj {res['iou_per_obj']} [{card}]")
+    return total
 
 
 def step_windows(step, label, card, b=2):
@@ -2210,8 +2504,14 @@ def main(argv=None) -> int:
     data_dir, cmd_launches = train_command_phase(rng, cfg, dev, cmd_dir,
                                                  counters)
 
+    started("the evaluation commands")
+    # -- 7. the evaluation commands over phase 6's data and checkpoints ---
+    eval_launches = eval_command_phase(
+        rng, cfg, dev, os.path.join(work_dirs[1], "eval_cmd"), data_dir,
+        counters, card)
+
     started("timings")
-    # -- 7. timings --------------------------------------------------------
+    # -- 8. timings --------------------------------------------------------
     bounds = {b: kernel_bounds(b, n_pts, n_cells, zn, n_sc)
               for b in (1, 2, 8)}
     for name, (k_ms, p_ms, l_ms) in timed.items():
@@ -2336,19 +2636,22 @@ def main(argv=None) -> int:
     record = {"voxelize_sweep": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_sweep.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:220",
-                  launches=serve_launches + cmd_launches["voxelize_sweep"],
+                  launches=serve_launches + cmd_launches["voxelize_sweep"]
+                  + eval_launches["voxelize_sweep"],
                   max_abs_err=sweep_err),
               "voxelize_padded": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_padded.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:886",
                   launches=padded_launches
-                  + cmd_launches["voxelize_padded"],
+                  + cmd_launches["voxelize_padded"]
+                  + eval_launches["voxelize_padded"],
                   max_abs_err=padded_err),
               "voxelize_heights": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:46",
                   launches=train_launches
-                  + cmd_launches["voxelize_heights"],
+                  + cmd_launches["voxelize_heights"]
+                  + eval_launches["voxelize_heights"],
                   max_abs_err=heights_err),
               "sort_radix": dict(
                   source="mv3d_tpu_torch/csrc/sort_radix.cu",

@@ -1,2 +1,3 @@
 """Host-side data: KITTI readers, tracklets, crop + pad, host aux planes,
-the rgb resize and the batch loader."""
+the rgb resize, the batch loader, the offline preprocessor and its
+precomputed-view dataset."""

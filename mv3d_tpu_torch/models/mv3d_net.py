@@ -274,22 +274,27 @@ class MV3DNet(nn.Module):
                               inside, cfg, nms_thresh=nms_thresh)
         boxes = props.rois[..., 1:5]
         rois3d = box3d_ops.top_box_to_box3d(boxes, cfg)
-        feats = {"top": rpn["features"]}
+        fuse = self.fuse_rois(outs, rois3d, boxes)
+        dets = rcnn_nms(fuse["probs"], fuse["deltas"], rois3d, props.mask,
+                        score_threshold=score_threshold, cfg=cfg)
+        return dets, props
+
+    def fuse_rois(self, outs: Dict[str, torch.Tensor], rois3d: torch.Tensor,
+                  top_rois: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The fusion head on (B, R) rois: ``outs`` is
+        :meth:`extract_features`' output, ``rois3d`` (B, R, 8, 3) and
+        ``top_rois`` (B, R, 4) the rois in 3D and on the top view.
+        Returns the head's outputs as (B, R, ...)."""
+        feats = {"top": outs["rpn"]["features"]}
         if "rgb_features" in outs:
             feats["rgb"] = outs["rgb_features"]
         if "front_features" in outs:
             feats["front"] = outs["front_features"]
-        pooled = self.pool_rois(feats, rois3d, boxes)
-
-        b, r = props.rois.shape[:2]
-        flat = {k: v.reshape((b * r,) + v.shape[2:])
-                for k, v in pooled.items()}
-        fuse = self.fusion(flat)
-        probs = fuse["probs"].reshape(b, r, -1)
-        deltas = fuse["deltas"].reshape(b, r, cfg.model.num_class, 8, 3)
-        dets = rcnn_nms(probs, deltas, rois3d, props.mask,
-                        score_threshold=score_threshold, cfg=cfg)
-        return dets, props
+        pooled = self.pool_rois(feats, rois3d, top_rois)
+        b, r = rois3d.shape[:2]
+        fuse = self.fusion({k: v.reshape((b * r,) + v.shape[2:])
+                            for k, v in pooled.items()})
+        return {k: v.reshape((b, r) + v.shape[1:]) for k, v in fuse.items()}
 
     # -- training ----------------------------------------------------------
 

@@ -75,6 +75,7 @@ class TopRPN(nn.Module):
             "features": _nhwc(x),                       # (B, H/8, W/8, 128)
             "scores": scores.reshape(b, -1, 2),         # (B, A, 2)
             "deltas": deltas.reshape(b, -1, 4),         # (B, A, 4)
+            "score_map": scores,                        # the RPN heatmap
         }
 
 
@@ -143,7 +144,9 @@ class _PredictHead(nn.Module):
 
 class FusionHead(nn.Module):
     """Multi-view ROI fusion, default mode: per-view towers, concat, two
-    DenseBnRelu layers and the with-RGB head.
+    DenseBnRelu layers and the with-RGB head, whose scores, probs and
+    deltas also stand for the ``_with_rgb`` and ``_without_rgb`` twins (as
+    the JAX module aliases them in this mode).
 
     The ``fc_wo_rgb_*`` layers exist so the parameter set matches the JAX
     module. No output of the default mode reads them: in eval mode the
@@ -181,5 +184,8 @@ class FusionHead(nn.Module):
                     dim=1)))
         w = self.fc_all_2(self.fc_all_1(torch.cat(feats, dim=1)))
         scores, deltas = self.head_with_rgb(w)
-        return {"scores": scores, "probs": F.softmax(scores, dim=-1),
-                "deltas": deltas}
+        out = {"scores": scores, "probs": F.softmax(scores, dim=-1),
+               "deltas": deltas}
+        # one head in the default mode: the twin heads' outputs are its own
+        return {k + head: v for head in ("", "_with_rgb", "_without_rgb")
+                for k, v in out.items()}

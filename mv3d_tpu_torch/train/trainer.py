@@ -1,8 +1,10 @@
 """User-facing API: ``MV3D`` (inference, weights), ``Predictor`` (an
-``MV3D`` that loads its checkpoints) and ``Trainer`` (staged training).
+``MV3D`` that loads its checkpoints), ``Trainer`` (staged training) and
+the testers the test command runs.
 
-Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor`` and
-``Trainer``:
+Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor``,
+``Trainer``, ``PredictorForTest``, ``TesterRPNTarget``, ``TesterRPN`` and
+``Tester3DOP``:
 
   * ``MV3D.predict`` (views in; the ``s2d2p`` layout's view is the
     (heights, aux) pair) and ``predict_from_points`` (raw padded lidar
@@ -30,21 +32,39 @@ Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor`` and
     losses plus :meth:`Trainer.validation_iou`, the host polygon 3D IoU of
     the detections against the gt), writes a :class:`MetricsWriter` row
     per iteration with its phase, and at the checkpoint cadence logs the
-    :class:`Timer`'s time and re-renders the dashboard.
+    :class:`Timer`'s time and re-renders the dashboard. With
+    ``debug_image_every`` it draws gt and detections of a batch's first
+    frame every that many iterations
+    (:func:`mv3d_tpu_torch.utils.metrics.dump_debug_images`).
+  * debugging: with ``debug_mode`` every module of this instance's model
+    raises ``FloatingPointError``, naming itself, when its forward output
+    holds a NaN or an infinity (JAX's ``jax_debug_nans`` raises at the op),
+    and a trainer's step runs under ``torch.autograd.detect_anomaly``, so
+    a backward that makes a NaN raises too; nothing global is switched
+    on. :meth:`MV3D.debug_dump` writes per-parameter and per-buffer
+    statistics; a NaN loss writes them beside the crash checkpoint.
+  * the testers return frame 0's masked numpy arrays, as the JAX classes
+    do: ``PredictorForTest`` (detections of the main and the twin fusion
+    heads, which the default fusion mode aliases, plus debug images),
+    ``TesterRPNTarget`` (RPN target assignment over every anchor, with
+    its noise drawn by :func:`draw_noise` from a seeded generator),
+    ``TesterRPN`` (proposals and the RPN heatmap) and ``Tester3DOP`` (the
+    fusion head on given 3D proposals).
 
 Entry points run on the card unless given ``device="cpu"``; without CUDA
 they raise. Weights come from a seeded ``torch.Generator`` init, from a
 JAX variables tree (:mod:`mv3d_tpu_torch.convert`) or from checkpoints.
 
-Not ported (ROADMAP queue A): debug image dumps, the orbax backend,
-``debug_mode`` / ``debug_dump``.
+Not ported (ROADMAP queue A): the orbax backend.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 import os
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,18 +72,22 @@ import torch
 from ..config import Config, cfg as _default_cfg
 from ..convert import load_variables, subnet_state_dict, subnet_variables
 from ..models.mv3d_net import MV3DNet, total_loss
-from ..models.nets import SUBNET_NAMES
+from ..models.nets import SUBNET_NAMES, TOP_VIEW_RPN
+from ..ops import boxes3d as box3d_ops
 from ..ops.boxes3d import boxes3d_score_iou
-from ..ops.detect import Detections
+from ..ops.detect import Detections, rcnn_nms
+from ..ops.proposal import rpn_proposals
 from ..ops.quantize import dequantize_points
 from ..ops.voxelize import lidar_to_front_batch, lidar_to_top_batch
 from ..utils.dashboard import render_dashboard
+from ..utils import viz
 from ..utils.logger import Logger
-from ..utils.metrics import MetricsWriter
+from ..utils.metrics import MetricsWriter, dump_debug_images
+from ..utils.png import write_png
 from ..utils.timer import Timer
 from .augment import augment_batch
 from .checkpoint import SubnetCheckpointer, load_progress, save_progress
-from .targets import draw_noise
+from .targets import draw_noise, rpn_target
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,6 +118,43 @@ def _prepare_views(batch: Dict[str, torch.Tensor], cfg: Config,
     if use_front:
         batch["front"] = lidar_to_front_batch(pts, cfg, num)
     return batch
+
+
+def first_frame(dets: Detections) -> Tuple[np.ndarray, np.ndarray]:
+    """Frame 0's live detections as host f32 arrays: (boxes3d (K, 8, 3),
+    probs (K,)), what the JAX package's single-frame methods return."""
+    mask = dets.mask[0].cpu().numpy()
+    return (dets.boxes3d[0].float().cpu().numpy()[mask],
+            dets.probs[0].float().cpu().numpy()[mask])
+
+
+def top_plane(top) -> np.ndarray:
+    """Frame 0 of a batched top view as a drawable host array; of the
+    ``s2d2p`` (heights, aux) pair, the heights plane."""
+    if isinstance(top, (tuple, list)):
+        top = top[0]
+    return top[0].float().cpu().numpy()
+
+
+def _floats(x):
+    """The floating-point tensors in a module's output."""
+    if torch.is_tensor(x):
+        return [x] if x.is_floating_point() else []
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _floats(v)]
+    return []
+
+
+def _finite_hook(name: str):
+    def hook(module, inputs, output):
+        for t in _floats(output):
+            if not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(
+                    f"debug_mode: non-finite output of {name} "
+                    f"({type(module).__name__})")
+    return hook
 
 
 def lr_schedule(cfg: Config, lr: float):
@@ -128,7 +189,7 @@ class MV3D:
                  seed: int = 0,
                  variables: Optional[Mapping[str, Any]] = None,
                  log_tag: str = "default", checkpoint_dir: str = "checkpoint",
-                 log_dir: str = "log"):
+                 log_dir: str = "log", debug_mode: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tag = log_tag
@@ -142,6 +203,10 @@ class MV3D:
         else:
             load_variables(self.model, variables)
         self.model.to(self.device).eval()
+        self.debug_mode = debug_mode
+        if debug_mode:
+            for name, module in self.model.named_modules():
+                module.register_forward_hook(_finite_hook(name or "MV3DNet"))
         ckpt_dir = os.path.join(checkpoint_dir, log_tag)
         self.checkpointers = {name: SubnetCheckpointer(name, ckpt_dir)
                               for name in SUBNET_NAMES}
@@ -190,6 +255,32 @@ class MV3D:
     def clean_weights(self, subnets: Optional[Sequence[str]] = None) -> None:
         for name in (subnets or SUBNET_NAMES):
             self.checkpointers[name].clean()
+
+    def debug_dump(self, path: Optional[str] = None) -> str:
+        """Write every parameter's and buffer's statistics (shape, dtype,
+        min/max/mean, NaN and infinity counts), one line each as the JAX
+        package writes them, to ``<log_dir>/debug/<tag>_weights.txt`` (or
+        ``path``) and return the path. Lines name ``subnet.parameter``;
+        BatchNorm's ``num_batches_tracked``, which flax has no
+        counterpart of, is left out."""
+        if path is None:
+            d = os.path.join(self.log_dir, "debug")
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, f"{self.tag}_weights.txt")
+        with open(path, "w") as f:
+            for subnet in sorted(self.model.subnets):
+                sd = self.model.subnets[subnet].state_dict()
+                for key, t in sd.items():
+                    if key.endswith("num_batches_tracked"):
+                        continue
+                    a = t.detach().to("cpu", torch.float32).numpy()
+                    f.write(f"{subnet}.{key} {a.shape} "
+                            f"{str(t.dtype).replace('torch.', '')} "
+                            f"min={a.min():.5g} max={a.max():.5g} "
+                            f"mean={a.mean():.5g} "
+                            f"nan={int(np.isnan(a).sum())} "
+                            f"inf={int(np.isinf(a).sum())}\n")
+        return path
 
     # -- inference ----------------------------------------------------------
 
@@ -274,10 +365,11 @@ class Trainer(MV3D):
                  continue_train: bool = False, lr: Optional[float] = None,
                  checkpoint_dir: str = "checkpoint", log_dir: str = "log",
                  seed: int = 0, device=None,
-                 variables: Optional[Mapping[str, Any]] = None):
+                 variables: Optional[Mapping[str, Any]] = None,
+                 debug_mode: bool = False):
         super().__init__(cfg, device=device, seed=seed, variables=variables,
                          log_tag=log_tag, checkpoint_dir=checkpoint_dir,
-                         log_dir=log_dir)
+                         log_dir=log_dir, debug_mode=debug_mode)
         if not train_targets or not set(train_targets) <= set(SUBNET_NAMES):
             raise ValueError(f"train_targets {train_targets!r} must be a "
                              f"non-empty subset of {SUBNET_NAMES}")
@@ -289,6 +381,8 @@ class Trainer(MV3D):
             cfg, cfg.train.lr if lr is None else lr)
 
         self.n_global_step = 0
+        # gt/detection images every this many iterations (0: never)
+        self.debug_image_every = 0
         if not continue_train:
             self.clean_weights(self.train_targets)
         else:
@@ -336,15 +430,18 @@ class Trainer(MV3D):
         batch = _prepare_views(batch, cfg, "front" in self.model.views)
         noise = draw_noise(cfg, batch["gt_mask"].shape[0], self.generator,
                            self.device)
+        anomaly = (torch.autograd.detect_anomaly(check_nan=True)
+                   if self.debug_mode else contextlib.nullcontext())
         if is_validation:
             with torch.no_grad():
                 loss_dict, aux = self.model.forward_train(batch, noise,
                                                           train=False)
         else:
-            loss_dict, aux = self.model.forward_train(batch, noise)
-            loss = total_loss(loss_dict, self.train_targets, cfg)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with anomaly:
+                loss_dict, aux = self.model.forward_train(batch, noise)
+                loss = total_loss(loss_dict, self.train_targets, cfg)
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
             self._clip_grads()
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.opt_steps)
@@ -357,6 +454,28 @@ class Trainer(MV3D):
     def close(self) -> None:
         super().close()
         self.metrics.close()
+
+    def _dump_debug_images(self, batch, step: int) -> str:
+        """Draw the gt and the detections (score gate 0.5) of the batch's
+        first frame on its hwc top view (f32, voxelized on the model's
+        device; bit-equal to the JAX package's numpy oracle) and its rgb,
+        under ``<log_dir>/debug_images/<tag>/<step>``."""
+        points = np.asarray(batch["points"][:1])
+        num = np.asarray(batch["num_points"][:1])
+        rgb = np.asarray(batch["rgb"][0])
+        boxes3d, _ = first_frame(self.predict_from_points(
+            points, num, rgb, score_threshold=0.5))
+        hwc = dataclasses.replace(self.cfg, pipeline=dataclasses.replace(
+            self.cfg.pipeline, view_layout="hwc", top_view_dtype="float32"))
+        with torch.inference_mode():
+            top = lidar_to_top_batch(self._batch(points, 3), hwc,
+                                     self._batch(num, 1, torch.int32))
+        gm = np.asarray(batch["gt_mask"][0])
+        return dump_debug_images(
+            os.path.join(self.log_dir, "debug_images", self.tag), step,
+            top_plane(top), rgb=rgb,
+            gt_boxes3d=np.asarray(batch["gt_boxes3d"][0])[gm],
+            det_boxes3d=boxes3d, cfg=self.cfg)
 
     def validation_iou(self, batch: Dict[str, np.ndarray],
                        score_threshold: Optional[float] = None) -> float:
@@ -427,14 +546,23 @@ class Trainer(MV3D):
                 line += "  |  iou %0.5f" % last["iou"]
             self.log(line + "\n")
             self.metrics.write(it, last, phase=step_name)
+            if (self.debug_image_every and it > 0
+                    and it % self.debug_image_every == 0
+                    and "points" in batch):
+                self._dump_debug_images(batch, it)
             if np.any(np.isnan(list(last.values()))):
                 # the post-update weights are likely poisoned: save them
-                # where latest_step() never looks, keep progress as is
-                paths = [self.checkpointers[n].save_crash(
-                    subnet_variables(self.model.subnets[n].state_dict()))
-                    for n in self.train_targets]
-                self.log(f"NaN crash-save at iter {it}: forensic weights "
-                         f"at {paths}\n")
+                # where latest_step() never looks, keep progress as is,
+                # and record which arrays went non-finite
+                try:
+                    paths = [self.checkpointers[n].save_crash(
+                        subnet_variables(self.model.subnets[n].state_dict()))
+                        for n in self.train_targets]
+                    dump = self.debug_dump()
+                    self.log(f"NaN crash-save at iter {it}: forensic weights "
+                             f"at {paths}, stats at {dump}\n")
+                except Exception as e:  # the original error must surface
+                    self.log(f"NaN crash-save failed: {e}\n")
                 raise FloatingPointError(
                     f"NaN loss at iter {it}: {last} (forensic crash "
                     f"checkpoint saved; resume uses the last good cadence "
@@ -452,3 +580,219 @@ class Trainer(MV3D):
         self.save_weights(self.train_targets, self.n_global_step)
         save_progress(self.log_dir, self.tag, self.n_global_step)
         return last
+
+
+class PredictorForTest(MV3D):
+    """Diagnostic predictor: the main detections plus those of the twin
+    fusion heads (with and without RGB), each NMS'd on its own, and
+    annotated debug images.
+
+    After a call ``boxes3d_with_rgb`` / ``probs_with_rgb`` /
+    ``boxes3d_without_rgb`` / ``probs_without_rgb`` hold the twin heads'
+    results (in the default fusion mode they are the main head's), and
+    :meth:`dump_log` draws the last frame's proposals, gt and detections.
+    """
+
+    def __init__(self, cfg: Config = _default_cfg, log_tag: str = "default",
+                 checkpoint_dir: str = "checkpoint", load: bool = True,
+                 **kw):
+        super().__init__(cfg, log_tag=log_tag, checkpoint_dir=checkpoint_dir,
+                         **kw)
+        if load:
+            self.load_weights()
+        self._last = None
+
+    @torch.inference_mode()
+    def _predict3(self, top, rgb, front, score_threshold: float):
+        model, cfg = self.model, self.cfg
+        outs = model.extract_features(top, rgb, front)
+        rpn = outs["rpn"]
+        props = rpn_proposals(rpn["scores"], rpn["deltas"], model.anchors,
+                              model.anchor_mask(top), cfg)
+        boxes = props.rois[..., 1:5]
+        rois3d = box3d_ops.top_box_to_box3d(boxes, cfg)
+        fuse = model.fuse_rois(outs, rois3d, boxes)
+        dets = {head: rcnn_nms(fuse["probs" + head], fuse["deltas" + head],
+                               rois3d, props.mask,
+                               score_threshold=score_threshold, cfg=cfg)
+                for head in ("", "_with_rgb", "_without_rgb")}
+        return dets, props
+
+    def __call__(self, top_view, front_view, rgb_image,
+                 nms_threshold: Optional[float] = None, gt_boxes3d=None):
+        """One frame's views (or a batch, of which frame 0 is reported);
+        ``nms_threshold`` is the score gate, as in the JAX class. Returns
+        (boxes3d, [], probs)."""
+        if nms_threshold is None:
+            nms_threshold = self.cfg.rcnn.score_threshold
+        self.model.eval()
+        top = self._batch(top_view, 4)
+        rgb = self._batch(rgb_image, 4)
+        front = (self._batch(front_view, 4)
+                 if "front" in self.model.views else None)
+        dets, props = self._predict3(top, rgb, front, nms_threshold)
+        boxes3d, probs = first_frame(dets[""])
+        for head in ("_with_rgb", "_without_rgb"):
+            b, p = first_frame(dets[head])
+            setattr(self, "boxes3d" + head, b)
+            setattr(self, "probs" + head, p)
+        pm = props.mask[0].cpu().numpy()
+        self._last = {
+            "top": top_plane(top), "rgb": rgb[0].cpu().numpy(),
+            "proposals": props.rois[0].cpu().numpy()[pm][:, 1:5],
+            "boxes3d": boxes3d,
+            "gt_boxes3d": (np.asarray(gt_boxes3d)
+                           if gt_boxes3d is not None else None),
+        }
+        return boxes3d, [], probs
+
+    def dump_log(self, log_subdir: str, n_frame: int) -> str:
+        """Write annotated BEV/camera PNGs of the last prediction under
+        ``<log_dir>/<log_subdir>/<n_frame>``."""
+        assert self._last is not None, "call the predictor first"
+        return dump_debug_images(
+            os.path.join(self.log_dir, log_subdir), n_frame,
+            self._last["top"], rgb=self._last["rgb"],
+            gt_boxes3d=self._last["gt_boxes3d"],
+            det_boxes3d=self._last["boxes3d"],
+            proposals=self._last["proposals"], cfg=self.cfg)
+
+
+class TesterRPNTarget(MV3D):
+    """RPN target-assignment prober: sampled and positive anchor counts,
+    and the sampled anchors drawn over the BEV image. Targets are
+    assigned over every anchor (no empty-anchor filter)."""
+
+    def __init__(self, cfg: Config = _default_cfg, log_tag: str = "default",
+                 checkpoint_dir: str = "checkpoint", **kw):
+        super().__init__(cfg, log_tag=log_tag, checkpoint_dir=checkpoint_dir,
+                         **kw)
+        self._last = None
+
+    @torch.inference_mode()
+    def __call__(self, top_view, gt_boxes3d, gt_labels, seed: int = 0,
+                 noise: Optional[Dict[str, Any]] = None) -> Tuple[int, int]:
+        """Returns (sampled, positive) anchor counts. The sampling draws
+        come from :func:`draw_noise` with a generator seeded by ``seed``,
+        unless ``noise`` gives ``rpn_pos`` and ``rpn_neg`` ((A,) or
+        (1, A))."""
+        cfg, dev = self.cfg, self.device
+        g = len(gt_boxes3d)
+        gt3d = self._batch(np.asarray(gt_boxes3d, np.float32), 4)
+        labels = self._batch(np.asarray(gt_labels), 2, torch.int64)
+        if noise is None:
+            noise = draw_noise(cfg, 1, torch.Generator().manual_seed(seed),
+                               dev)
+        u_pos, u_neg = (self._batch(noise[k], 2)
+                        for k in ("rpn_pos", "rpn_neg"))
+        anchors = self.model.anchors
+        tg = rpn_target(anchors,
+                        torch.ones(1, anchors.shape[0], dtype=torch.bool,
+                                   device=dev),
+                        box3d_ops.box3d_to_top_box(gt3d, cfg), labels,
+                        torch.ones(1, g, dtype=torch.bool, device=dev),
+                        u_pos, u_neg, cfg)
+        top = (top_view[0] if isinstance(top_view, (tuple, list))
+               else top_view)        # of the s2d2p pair, the heights
+        top = top if torch.is_tensor(top) else np.asarray(top)
+        top = top[0] if top.ndim == 4 else top
+        self._last = {"top": (top.float().cpu().numpy()
+                              if torch.is_tensor(top) else top),
+                      "gt_boxes3d": np.asarray(gt_boxes3d),
+                      "cls_mask": tg.cls_mask[0].cpu().numpy(),
+                      "labels": tg.labels[0].cpu().numpy(),
+                      "pos_mask": tg.pos_mask[0].cpu().numpy()}
+        return (int(self._last["cls_mask"].sum()),
+                int(self._last["pos_mask"].sum()))
+
+    def anchors_details(self) -> str:
+        return "anchors: positive= {} total= {}\n".format(
+            int(self._last["pos_mask"].sum()),
+            int(self._last["cls_mask"].sum()))
+
+    def dump_log(self, log_subdir: str, step: int = 0) -> str:
+        """Sampled anchors over the BEV image (negatives gray, positives
+        blue, gt white) as ``<log_dir>/<log_subdir>/rpn_target_<step>.png``."""
+        assert self._last is not None, "call the tester first"
+        anchors = self.model.anchors.cpu().numpy()
+        img = viz.draw_top_image(self._last["top"])
+        neg = self._last["cls_mask"] & ~self._last["pos_mask"]
+        img = viz.draw_boxes2d(img, anchors[neg], color=(128, 128, 128))
+        img = viz.draw_boxes2d(img, anchors[self._last["pos_mask"]],
+                               color=(0, 64, 255))
+        if len(self._last["gt_boxes3d"]):
+            img = viz.draw_box3d_on_top(img, self._last["gt_boxes3d"],
+                                        color=(255, 255, 255), cfg=self.cfg)
+        d = os.path.join(self.log_dir, log_subdir)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"rpn_target_{step:06d}.png")
+        write_png(path, img)
+        return path
+
+
+class TesterRPN(MV3D):
+    """RPN-only prober: a frame's proposals, their scores and the RPN's
+    score heatmap (only the ``top_view_rpn`` checkpoint is loaded)."""
+
+    def __init__(self, cfg: Config = _default_cfg, log_tag: str = "default",
+                 checkpoint_dir: str = "checkpoint", load: bool = True,
+                 **kw):
+        super().__init__(cfg, log_tag=log_tag, checkpoint_dir=checkpoint_dir,
+                         **kw)
+        if load:
+            self.load_weights([TOP_VIEW_RPN])
+
+    def proposals(self, top):
+        """The RPN on a batched top view (any layout, the ``s2d2p`` pair
+        included): (Proposals, score map (B, H', W', 2 * bases))."""
+        with torch.inference_mode():
+            out = self.model.top_rpn(top)
+            props = rpn_proposals(out["scores"], out["deltas"],
+                                  self.model.anchors,
+                                  self.model.anchor_mask(top), self.cfg)
+        return props, out["score_map"]
+
+    def __call__(self, top_view):
+        """Returns frame 0's (rois (K, 5), scores (K,), heatmap)."""
+        self.model.eval()
+        props, heatmap = self.proposals(self._batch(top_view, 4))
+        mask = props.mask[0].cpu().numpy()
+        return (props.rois[0].cpu().numpy()[mask],
+                props.scores[0].cpu().numpy()[mask],
+                heatmap[0].cpu().numpy())
+
+
+class Tester3DOP(MV3D):
+    """The fusion head on externally supplied (K, 8, 3) 3D proposals (e.g.
+    3DOP's), bypassing the RPN."""
+
+    def __init__(self, cfg: Config = _default_cfg, log_tag: str = "default",
+                 checkpoint_dir: str = "checkpoint", load: bool = True,
+                 **kw):
+        super().__init__(cfg, log_tag=log_tag, checkpoint_dir=checkpoint_dir,
+                         **kw)
+        if load:
+            self.load_weights()
+
+    @torch.inference_mode()
+    def __call__(self, top_view, front_view, rgb_image, rois3d,
+                 score_threshold: Optional[float] = None):
+        """Returns frame 0's (probs (K,), boxes3d (K, 8, 3))."""
+        if score_threshold is None:
+            score_threshold = self.cfg.rcnn.score_threshold
+        model, cfg = self.model, self.cfg
+        model.eval()
+        top = self._batch(top_view, 4)
+        rgb = self._batch(rgb_image, 4)
+        front = (self._batch(front_view, 4) if "front" in model.views
+                 else None)
+        rois3d = self._batch(np.asarray(rois3d, np.float32), 4)
+        outs = model.extract_features(top, rgb, front)
+        fuse = model.fuse_rois(outs, rois3d,
+                               box3d_ops.box3d_to_top_box(rois3d, cfg))
+        dets = rcnn_nms(fuse["probs"], fuse["deltas"], rois3d,
+                        torch.ones(rois3d.shape[:2], dtype=torch.bool,
+                                   device=self.device),
+                        score_threshold=score_threshold, cfg=cfg)
+        boxes3d, probs = first_frame(dets)
+        return probs, boxes3d

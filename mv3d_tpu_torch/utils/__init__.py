@@ -1,2 +1,2 @@
-"""Host utilities: PNG I/O, logging, timing, metrics, the dashboard and
-data checks."""
+"""Host utilities: PNG I/O, debug drawing, logging, timing, metrics and
+debug images, the dashboard and data checks."""

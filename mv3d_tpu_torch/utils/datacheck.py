@@ -1,15 +1,43 @@
-"""KITTI object directory checks and train/validation splits.
+"""Data integrity checks and train/validation splits.
 
-Port of ``mv3d_tpu/utils/datacheck.py``'s ``check_kitti_object_dir``,
-``split_train_val`` and ``write_split_files``.
+Port of ``mv3d_tpu/utils/datacheck.py``: ``check_preprocessed_dir`` (a
+preprocessed dump's subdirectories hold one tag set),
+``check_kitti_object_dir``, ``split_train_val`` and
+``write_split_files``.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+
+def check_preprocessed_dir(root: str,
+                           subdirs: Sequence[str] = ("top", "gt_boxes3d",
+                                                     "gt_labels")) -> Dict:
+    """Verify that every dump subdir holds the same tag set.
+
+    Returns {'ok': bool, 'counts': {subdir: n}, 'missing': {subdir: [tags]}}.
+    """
+    tag_sets = {}
+    for sub in subdirs:
+        tags = set()
+        for f in glob.glob(os.path.join(root, sub, "*")):
+            base = os.path.basename(f)
+            for ext in (".npy.npz", ".npy", ".png"):
+                if base.endswith(ext):
+                    base = base[: -len(ext)]
+                    break
+            tags.add(base)
+        tag_sets[sub] = tags
+    union = set().union(*tag_sets.values()) if tag_sets else set()
+    missing = {sub: sorted(union - tags) for sub, tags in tag_sets.items()}
+    return {"ok": all(not m for m in missing.values()),
+            "counts": {s: len(t) for s, t in tag_sets.items()},
+            "missing": missing}
 
 
 def split_train_val(tags: Sequence[str], train_fraction: float = 0.7,

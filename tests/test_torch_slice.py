@@ -147,9 +147,17 @@ from mv3d_tpu_torch import config, convert, serving
 from mv3d_tpu_torch.cli import common, export as cli_export
 from mv3d_tpu_torch.cli import serve as cli_serve
 from mv3d_tpu_torch.cli import train as cli_train
-from mv3d_tpu_torch.data import host_aux, kitti, loader, tracklets
+from mv3d_tpu_torch.cli import (dashboard as cli_dashboard,
+                                preprocess as cli_preprocess,
+                                rehearsal as cli_rehearsal, test as cli_test,
+                                tracking as cli_tracking)
+from mv3d_tpu_torch import eval as evaluation, experiments
+from mv3d_tpu_torch.data import (host_aux, kitti, loader, precomputed,
+                                 preprocess, tracklets)
+from mv3d_tpu_torch.eval import kitti_export, tracklet_eval
+from mv3d_tpu_torch.experiments import task
 from mv3d_tpu_torch.utils import (dashboard, datacheck, logger, metrics, png,
-                                  timer)
+                                  timer, viz)
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
                                 nms, proposal, quantize, roi_align, sort,
                                 sort_bitonic, voxelize, voxelize_heights,
@@ -215,8 +223,21 @@ cli_train.main(["--kitti-object", root, "--device", "cpu", "-b", "2",
                 "--set", "train.ckpt_every", "2", "--checkpoint-dir",
                 d + "/ck", "--log-dir", d + "/lg", "-n", "t"])
 assert os.path.exists(d + "/lg/dashboard.html")
+ev = ["--kitti-object", root, "--device", "cpu", "--config", d + "/tiny.json",
+      "-n", "t", "--checkpoint-dir", d + "/ck", "--limit", "1"]
+for cmd in ("test_mv3d", "export_kitti", "probe_rpn"):
+    cli_test.main([cmd, "--out-dir", d + "/" + cmd] + ev)
+assert os.listdir(d + "/export_kitti") == ["000000.txt"]
+assert cli_preprocess.main(["--kitti-object", root, "-o", d + "/pre",
+                            "--device", "cpu", "--config",
+                            d + "/tiny.json"]) == 4
+cli_rehearsal.main(["--synthetic-fixture", "--fixture-frames", "2", "-o",
+                    d + "/rh", "-i", "1", "--config", d + "/tiny.json",
+                    "--device", "cpu"])
+assert os.path.exists(d + "/rh/eval/iou_per_obj.csv")
+cli_dashboard.main([d + "/rh/log"])
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "mv3d_tpu"))
+             if m.split(".")[0] in ("jax", "flax", "mv3d_tpu", "PIL"))
 assert not bad, bad
 print("ok")
 """
@@ -225,9 +246,11 @@ print("ok")
 def test_port_never_imports_jax():
     """Every port module, its CLI and ``chip_smoke`` import, predict (the
     hwc and the s2d2p serving configuration), train, export an artifact
-    that answers one HTTP /predict request, and run the train command on
-    a tiny KITTI directory written to disk, on the CPU, without loading
-    jax, flax or the JAX package."""
+    that answers one HTTP /predict request, run the train command on a
+    tiny KITTI directory written to disk, then the test command
+    (test_mv3d, export_kitti, probe_rpn), the preprocess command, a
+    rehearsal and the dashboard command, on the CPU, without loading
+    jax, flax, the JAX package or PIL."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
