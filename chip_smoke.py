@@ -2,8 +2,9 @@
 
 Drives ``mv3d_tpu_torch`` — never jax — through its five paths at full
 KITTI width (top view 800x600x27, rgb 375x1242, 65,536 points per frame,
-30,000 anchors) with random weights from a seed, and holds each of their
-hand-written kernels against its plain PyTorch version:
+30,000 anchors), then the didi presets and the model options, with
+random weights from a seed, and holds each of their hand-written kernels
+against its plain PyTorch version:
 
   * serving, hwc: ``MV3D.predict_from_points`` (lidar -> 3D boxes, 30
     proposals per frame) in the standard view layout, through the fused
@@ -118,7 +119,29 @@ Phases:
      frames, ``tracklet_labels.xml``) through ``cli.tracking --eval``;
      ``cli.dashboard``; ``cli.rehearsal --synthetic-fixture -i 2`` at
      full width; every output file is read back;
-  8. time each kernel against its plain version and the one PyTorch call
+  8. ``options``: the didi presets and the model options at full width
+     (``options_phase``), each path with the kernel counts set to 0 just
+     before and read just after. didi (450 x 100 x 14, rgb 596 x 1368
+     cropped from 1096 x 1368, 2,964 anchors) and didi2 (500 x 300 x 15,
+     9,576 anchors): every kernel bit-equal to its plain version at the
+     preset's grid on clouds holding the capture car's returns and
+     filling the top slice (height values above 1), on the skewed cases
+     and with K1 after K4 against K1 alone; 3 requests of B=2 in hwc (K1
+     once each), in s2d2p (K2) and at "pallas-sort" (K4 and K1); 3
+     training steps at B=2 with the host aux plane from a drive holding
+     the capture car's returns (K3 once each; the loader crops them); for
+     didi a small f32 model on the card against the CPU (the serving
+     phase's tolerances, the moved rgb ROI corners counted) and
+     ``cli.tracking --dataset didi --eval`` over a 4-frame drive in the
+     bag converter's layout (K1 once a frame), its XML and CSVs read
+     back. Each model option of ``OPTION_MODELS`` at KITTI width (the
+     reference graph's deconvs with the 7x7/2 stem, with the VGG rgb
+     trunk too, basic blocks, siamese, handcraft and learnable fusion): 2
+     requests of B=2 (K1 once each), 1 training step at B=2 in hwc with
+     the host aux plane (K3 once, finite losses) and a small f32 model on
+     the card against the CPU; each configuration's wall ms per request
+     and per step and its peak allocated memory printed;
+  9. time each kernel against its plain version and the one PyTorch call
      that computes the same function, where there is one (CUDA events, the
      wrapper included), at B=1, 2 and 8, beside the kernel's device time
      alone (CUDA events over calls enqueued behind a spin kernel, so they
@@ -143,7 +166,7 @@ Phases:
      disk loader alone at 1, 2 and 4 workers and one thread's time per
      frame by stage (velodyne, label, PNG decode, resize, crop and pad,
      aux plane);
-  9. only with ``--profile DIR``: torch.profiler over a few requests of
+  10. only with ``--profile DIR``: torch.profiler over a few requests of
      each serving configuration at B=1 and B=8 and a few training steps
      (the in-memory hwc step, the disk-fed s2d2p and hwc steps):
      the card's busy time per request or step (union of kernel
@@ -154,9 +177,11 @@ Phases:
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The line before the last is the kernels' JSON record (each
 kernel's launches summed over the paths counted: K1 serving, hwc
-validation predictions and the evaluation commands, K2 serving, the
-s2d2p command and the s2d2p test commands, K3 the training phase, the
-hwc command and the rehearsal); the last is ``{"ok": true,
+validation predictions, the evaluation commands and the options phase,
+K2 serving, the s2d2p command, the s2d2p test commands and the didi
+s2d2p requests, K3 the training phase, the hwc command, the rehearsal
+and the options phase's steps, K4 the HTTP requests and the didi
+"pallas-sort" requests); the last is ``{"ok": true,
 "device": {...}}``. Checkpoints, serving artifacts, logs and the KITTI
 directory go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the
 checkout and are removed. Run from the repository root:
@@ -261,16 +286,21 @@ class SynthDrive:
     """An in-memory synthetic drive for the port's ``BatchLoader``:
     raw-size clouds drawn as bench.py draws them (``n_raw`` points
     uniform in the crop box widened by 10 m in x and y and by 0.3-0.4 m in
-    z), uint8 rgb at ``cfg.rgb_shape``, and per frame ``cars`` (lo, hi) gt
+    z), uint8 rgb at the camera's size (``cfg.image_height`` x
+    ``image_width``, which the loader crops to ``cfg.rgb_shape``), and per
+    frame ``cars`` (lo, hi) gt
     cars (label 1) with 300 points planted inside each, so the RPN and
-    fusion targets have positives."""
+    fusion targets have positives. With ``ego`` each frame also holds
+    ``ego`` returns of the capture car itself, inside the 4.7 x 2.1 m box
+    around the origin that the didi presets' center-car filter crops."""
 
     def __init__(self, rng, cfg, n_frames: int, n_raw: int,
-                 cars=(3, 8)):
+                 cars=(3, 8), ego: int = 0):
         import numpy as np
         from mv3d_tpu_torch.data.loader import Frame
         t = cfg.top
-        h, w, _ = cfg.rgb_shape
+        # the camera's raw image: the loader crops it to cfg.rgb_shape
+        h, w = cfg.image_height, cfg.image_width
         self.frames = []
         for i in range(n_frames):
             cloud = np.stack([
@@ -294,6 +324,11 @@ class SynthDrive:
                 planted.append(np.concatenate([
                     xy + center[:2], local[:, 2:] + center[2],
                     rng.uniform(0, 1, (300, 1))], 1))
+            if ego:
+                planted.append(np.stack([rng.uniform(-2.3, 2.3, ego),
+                                         rng.uniform(-1.0, 1.0, ego),
+                                         rng.uniform(-1.5, 0.0, ego),
+                                         rng.uniform(0.5, 1.0, ego)], 1))
             points = np.concatenate([np.concatenate(planted), cloud])
             self.frames.append(Frame(
                 tag=f"{i:05d}", points=points.astype(np.float32),
@@ -456,11 +491,14 @@ def profile_calls(call, n: int, label: str, median_s: float, out_dir: str,
     return busy_ms
 
 
-def small_reference(rng, dev, serving: bool = False):
+def small_reference(rng, dev, serving: bool = False, small=None,
+                    label: str = ""):
     """A small f32 model from one seed, run on the card and on the CPU:
     RPN outputs, proposals and detections must agree. With ``serving``
     the model runs in ``mv3d_tpu_torch.serving_config`` (s2d2p pair in
-    bf16, split stem, matmul ROI-align; compute stays f32).
+    bf16, split stem, matmul ROI-align; compute stays f32). ``small``
+    replaces the small KITTI config (a didi preset, a model option;
+    ``label`` names it).
 
     Tolerances: proposal and detection masks exact; RPN scores/deltas atol
     1e-4 and proposal rois atol 1e-3 (cuDNN and the CPU sum convs in
@@ -472,23 +510,19 @@ def small_reference(rng, dev, serving: bool = False):
     (measured on an H100 with 2 moved corners: 2.1e-4 and 2.9e-3 m)."""
     import numpy as np
     import torch
-    from mv3d_tpu_torch import kitti_config, serving_config
+    from mv3d_tpu_torch import serving_config
     from mv3d_tpu_torch.models.mv3d_net import project_to_rgb_roi
     from mv3d_tpu_torch.ops.boxes3d import top_box_to_box3d
     from mv3d_tpu_torch.ops.voxelize import lidar_to_top_batch
     from mv3d_tpu_torch.train.trainer import MV3D
 
-    cfg = kitti_config()
-    small = dataclasses.replace(
-        cfg, top=dataclasses.replace(cfg.top, x_max=16.0, y_min=-6.0,
-                                     y_max=6.0, x_div=0.2, y_div=0.2),
-        model=dataclasses.replace(cfg.model, compute_dtype="float32"),
-        image_width=96, image_height=64)
+    if small is None:
+        small = _small_config()
     if serving:
         small = serving_config(small)
     pts = make_cloud(rng, 2, 2048, small, tricky=False)
     rgb = rng.rand(2, *small.rgb_shape).astype(np.float32)
-    res = {}
+    res = []
     for d in (torch.device("cpu"), dev):
         net = MV3D(small, device=d, seed=1).model
         with torch.inference_mode():
@@ -499,11 +533,10 @@ def small_reference(rng, dev, serving: bool = False):
                 top, torch.from_numpy(rgb).to(d), None, THRESH, top_occ=occ)
             rgb_rois = project_to_rgb_roi(
                 top_box_to_box3d(props.rois[..., 1:5], small), small)
-        res[d.type] = [x.cpu() for x in (
+        res.append([x.cpu() for x in (
             rpn["scores"], rpn["deltas"], props.mask, props.rois, rgb_rois,
-            dets.mask, dets.probs, dets.boxes3d)]
-    (s0, d0, pm0, r0, g0, m0, p0, b0) = res["cpu"]
-    (s1, d1, pm1, r1, g1, m1, p1, b1) = res["cuda"]
+            dets.mask, dets.probs, dets.boxes3d)])
+    (s0, d0, pm0, r0, g0, m0, p0, b0), (s1, d1, pm1, r1, g1, m1, p1, b1) = res
 
     def err(a, b, mask=None):
         return (a - b)[mask].abs().max().item() if mask is not None \
@@ -521,7 +554,7 @@ def small_reference(rng, dev, serving: bool = False):
               "proposal rois": (err(r0, r1), 1e-3),
               "probs": (err(p0, p1, m0), fused[0]),
               "boxes3d": (err(b0, b1, m0), fused[1])}
-    log(f"phase reference: small f32 model "
+    log(f"phase reference: small f32 model {label}"
         f"({small.pipeline.view_layout}, {small.model.roi_align_impl} "
         f"ROI-align), card vs CPU: same "
         f"{int(pm0.sum())} proposals and {int(m0.sum())} live detections; "
@@ -1014,10 +1047,12 @@ def train_command_phase(rng, cfg, dev, work_dir, counters):
     return data_dir, total
 
 
-def write_raw_drive(root, drive, cfg, date="2011_09_26", drive_id="0001"):
+def write_raw_drive(root, drive, cfg, date="2011_09_26", drive_id="0001",
+                    didi: bool = False):
     """Write ``drive``'s frames (a :class:`SynthDrive`) as a KITTI raw
     drive, ``<root>/<date>/<date>_drive_<id>_sync/{velodyne_points/data,
-    image_02/data}`` (PNGs at the model's rgb size), with a
+    image_02/data}``, or with ``didi`` in the didi bag converter's layout
+    ``<root>/<date>/<id>/...`` (PNGs at the frames' rgb size), with a
     ``tracklet_labels.xml`` (``data/tracklets.write_tracklets``) holding
     each frame's gt cars as one-pose tracklets."""
     import numpy as np
@@ -1025,7 +1060,8 @@ def write_raw_drive(root, drive, cfg, date="2011_09_26", drive_id="0001"):
     from mv3d_tpu_torch.data import tracklets
     from mv3d_tpu_torch.ops.boxes3d import boxes3d_decompose
     from mv3d_tpu_torch.utils.png import write_png
-    base = os.path.join(root, date, f"{date}_drive_{drive_id}_sync")
+    base = os.path.join(root, date, drive_id if didi
+                        else f"{date}_drive_{drive_id}_sync")
     for sub in ("velodyne_points", "image_02"):
         os.makedirs(os.path.join(base, sub, "data"), exist_ok=True)
     tracks = []
@@ -1277,6 +1313,279 @@ def eval_command_phase(rng, cfg, dev, work_dir, data_dir, counters, card):
         f"{steps} training steps (voxelize_heights {steps}), 4 predictions "
         f"(voxelize_sweep 4); tracking wrote {n_tracks} tracklets; "
         f"iou_per_obj {res['iou_per_obj']} [{card}]")
+    return total
+
+
+# the model options of phase ``options``, each alone and as the reference
+# graph (the bilinear deconvs with the 7x7/2 stem)
+OPTION_MODELS = (
+    ("reference graph (upsample_features, 7x7/2 stem)",
+     dict(upsample_features=True, stem_space_to_depth=False)),
+    ("reference graph + VGG rgb trunk",
+     dict(upsample_features=True, stem_space_to_depth=False,
+          rgb_basenet="vgg")),
+    ("basic blocks", dict(backbone_block="basic")),
+    ("siamese fusion", dict(use_siamese_fusion=True)),
+    ("handcraft fusion", dict(use_handcraft_fusion=True)),
+    ("learnable fusion", dict(use_learnable_fusion=True)))
+
+
+def with_model(cfg, **kw):
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **kw))
+
+
+def with_pipeline(cfg, **kw):
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, **kw))
+
+
+def didi_cloud(rng, b, n, cfg):
+    """(B, N, 4) ``make_cloud`` tricky clouds (the top slice filled up to
+    z_max and beyond) with a twentieth of the points the capture car's own
+    returns, inside the center-car box the didi presets crop, some on its
+    edges (|x| = 2.35, |y| = 1.05 in f32)."""
+    import numpy as np
+    pts = make_cloud(rng, b, n, cfg, tricky=True)
+    k = n // 20
+    pts[:, -k:] = np.stack([rng.uniform(-2.5, 2.5, (b, k)),
+                            rng.uniform(-1.2, 1.2, (b, k)),
+                            rng.uniform(-1.5, 0.5, (b, k)),
+                            rng.uniform(0, 1, (b, k))], -1)
+    q = k // 4
+    pts[:, -q:, 0] = np.float32(4.7 / 2) * rng.choice([-1, 1], (b, q))
+    pts[:, -2 * q:-q, 1] = np.float32(2.1 / 2) * rng.choice([-1, 1], (b, q))
+    return pts.astype(np.float32)
+
+
+def small_didi_config():
+    """A small f32 didi config (24 m x 12 m at 0.2 m, z as didi's: 12
+    slices and the top one's values up to 1.33; a 96 x 100 camera cropped
+    by 30 + 20 rows) for the card-against-CPU reference."""
+    from mv3d_tpu_torch.config import make_config
+    cfg = make_config("didi")
+    return dataclasses.replace(
+        cfg, top=dataclasses.replace(cfg.top, x_min=-12, x_max=12,
+                                     y_min=-6, y_max=6),
+        model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+        pipeline=dataclasses.replace(cfg.pipeline, max_points=4096),
+        image_width=96, image_height=100, image_crop_top=30,
+        image_crop_bottom=20)
+
+
+def check_kernels_at_grid(rng, cfg, dev, n_pts, label):
+    """Each kernel against its plain version at ``cfg``'s grid (B=2, N =
+    ``n_pts``) on ``didi_cloud`` clouds, bit-equal on the card and to the
+    CPU: K1 and K2 (heights f32 and bf16) on the path's points and on the
+    skewed cases (one tile, one cell, the last partial tile, padding / pad
+    lanes), K3, K4 and K1 on K4's output against K1 alone. Returns
+    {kernel: max |kernel - plain|} (0)."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize as vox
+    from mv3d_tpu_torch.ops import voxelize_heights as vh
+    from mv3d_tpu_torch.ops import voxelize_padded as vp
+    from mv3d_tpu_torch.ops import voxelize_sweep as sweep
+    t = cfg.top
+    n_cells, zn = t.xn * t.yn, t.zn
+    n_flat = n_cells * zn
+    n_sc = (t.xn // 2) * vox.folded_pad_width(t.yn)
+    pts = torch.from_numpy(didi_cloud(rng, 2, n_pts, cfg))
+    valid, _, flat, val, refl = vox._top_prep(pts, cfg, None)
+    top_val = val[flat % zn == zn - 1].max().item()
+    if not top_val > 1.0:
+        raise AssertionError(f"{label}: the top slice's values stay <= 1")
+    refl = torch.where(flat < n_flat, refl, 0.0)
+    cpu = (flat, val, refl)
+    err = {}
+    occupied, err["voxelize_sweep"] = check_sweep(cpu, dev, n_cells, zn,
+                                                  label)
+    cases, e = check_sweep_cases(rng, dev, 2, n_pts, n_cells, zn)
+    err["voxelize_sweep"] = max(err["voxelize_sweep"], e)
+    tile, n_tiles, _ = sweep.tile_plan(2 * n_cells, zn)
+    _, _, pf, pv, pr = vox._top_prep(pts, cfg, None, s2d="pad")
+    pr = torch.where(pf < n_sc * 128, pr, 0.0)
+    (p_occ, _), err["voxelize_padded"] = check_padded((pf, pv, pr), dev,
+                                                      n_sc, zn, label)
+    p_cases, e = check_padded_cases(rng, dev, 2, n_pts, n_sc, zn)
+    err["voxelize_padded"] = max(err["voxelize_padded"], e)
+    want = vh.scatter_max_plain(flat, val, n_flat)
+    args = (flat.to(dev), val.to(dev), n_flat)
+    got, plain = vh.scatter_max_kernel(*args), vh.scatter_max_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, plain) and torch.equal(got.cpu(), want)):
+        raise AssertionError(f"heights kernel differs from its plain "
+                             f"version ({label})")
+    err["voxelize_heights"] = (got - plain).abs().max().item()
+    err["sort_radix"] = check_sort(*cpu, dev, label)
+    check_sort_then_sweep(*(x.to(dev) for x in cpu), n_cells, zn)
+    dropped = int((~valid).sum())
+    log(f"phase options: kernels at the {label} grid ({t.xn} x {t.yn} x "
+        f"{zn}: {n_cells} cells per frame, K1 tiles of {tile} cells, "
+        f"{n_tiles} at B=2, the last holding "
+        f"{2 * n_cells - (n_tiles - 1) * tile}; K2 {n_sc} supercells, "
+        f"tiles of {vp.tile_plan(n_sc)[0]}), B=2 N={n_pts} with the "
+        f"capture car's returns and the top slice filled (values up to "
+        f"{top_val:.4f}; {dropped} points cropped): voxelize_sweep "
+        f"(occupied {occupied}; skewed {cases}), voxelize_padded (occupied "
+        f"{p_occ}; skewed {p_cases}), voxelize_heights, sort_radix and the "
+        f"sweep after the sort bit-equal to their plain versions on the "
+        f"card and on the CPU")
+    return err
+
+
+def _peak_mib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def options_phase(rng, dev, work_dir, counters, requests, card):
+    """Phase ``options``: the didi presets and the model options at full
+    width, with random weights from a seed; each path driven with the
+    kernels' counts set to 0 just before and read just after.
+
+    didi and didi2: the kernels at their grids (``check_kernels_at_grid``),
+    3 requests of B=2 in hwc (K1 once each), in s2d2p (K2) and at
+    ``voxel_order="pallas-sort"`` with 65,536 points (K4 and K1), 3
+    training steps at B=2 with the host aux plane from an in-memory drive
+    holding the capture car's returns (K3 once each); a small f32 didi
+    model on the card against the CPU; ``cli.tracking --dataset didi
+    --eval`` over a 4-frame drive in the bag converter's layout (K1 once a
+    frame), its XML and CSVs read back. Each model option of
+    ``OPTION_MODELS`` at KITTI width: 2 of ``requests`` (K1 once each), 1
+    training step at B=2 in hwc with the host aux plane (K3 once), a small
+    f32 model on the card against the CPU. Prints each configuration's
+    wall ms per request and per step and its peak allocated memory.
+    Returns {kernel: launches} summed over the paths."""
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch import kitti_config, serving_config
+    from mv3d_tpu_torch.cli import tracking as tracking_cli
+    from mv3d_tpu_torch.config import make_config
+    from mv3d_tpu_torch.data.loader import BatchLoader
+    from mv3d_tpu_torch.data.tracklets import parse_tracklets
+    from mv3d_tpu_torch.train.trainer import MV3D, Trainer
+    total = {k: 0 for k in counters}
+    none = {k: 0 for k in counters}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    def serve(model, reqs, want, label):
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        add(serve_requests(model, reqs, counters, {**none, **want}, times))
+        log(f"phase options: {label}: {len(reqs)} requests of B=2, wall ms "
+            f"per request " + ", ".join(f"{t:.1f}" for t in times)
+            + f" (the first with its first-call set-up); peak allocated "
+            f"{_peak_mib():.0f} MiB [{card}]")
+
+    def train(cfg, loader, steps, label, tag):
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(loader, cfg=cfg, device=dev, seed=0, log_tag=tag,
+                     checkpoint_dir=os.path.join(work_dir, "ckpt"),
+                     log_dir=os.path.join(work_dir, "log"))
+        for c in counters.values():
+            c.launches = 0
+        times = []
+        for _ in range(steps):
+            batch = loader.load()
+            t0 = time.time()
+            losses = tr.fit_iteration(batch)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+            if not np.isfinite(list(losses.values())).all():
+                raise AssertionError(f"{label}: non-finite losses {losses}")
+        counts = {k: c.launches for k, c in counters.items()}
+        _expect(counts, {**none, "voxelize_heights": steps}, label)
+        add(counts)
+        log(f"phase options: {label}: {steps} training step"
+            f"{'s' if steps > 1 else ''} of B=2 (host "
+            f"aux plane), voxelize_heights {steps}; wall ms per step "
+            + ", ".join(f"{t:.1f}" for t in times) + "; losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+            + f"; peak allocated {_peak_mib():.0f} MiB [{card}]")
+        return tr
+
+    for preset in ("didi", "didi2"):
+        cfg = make_config(preset)
+        n_pts = cfg.pipeline.max_points
+        t = cfg.top
+        check_kernels_at_grid(rng, cfg, dev, n_pts, preset)
+        reqs = [(didi_cloud(rng, 2, n_pts, cfg), np.full(2, n_pts, np.int32),
+                 rng.rand(2, *cfg.rgb_shape).astype(np.float32))
+                for _ in range(3)]
+        hwc = with_pipeline(cfg, use_pallas_fused=True)
+        for name, c, want in (
+                ("hwc", hwc, {"voxelize_sweep": 3}),
+                ("s2d2p", serving_config(cfg), {"voxelize_padded": 3}),
+                ("hwc at pallas-sort", with_pipeline(
+                    hwc, voxel_order="pallas-sort"),
+                 {"sort_radix": 3, "voxelize_sweep": 3})):
+            model = MV3D(c, device=dev, seed=0)
+            serve(model, reqs, want, f"{preset} ({t.xn} x {t.yn} x "
+                  f"{t.channels}, rgb {cfg.rgb_shape[0]} x "
+                  f"{cfg.rgb_shape[1]} cropped from {cfg.image_height} x "
+                  f"{cfg.image_width}, {cfg.num_anchors} anchors) {name}")
+            del model
+        drive = SynthDrive(rng, cfg, 4, 110000, cars=(2, 4), ego=3000)
+        with BatchLoader(drive, cfg, batch_size=2, seed=0) as loader:
+            batch = loader.load()
+            live = np.arange(n_pts) < batch["num_points"][:, None]
+            p = batch["points"]
+            if ((np.abs(p[..., 0]) <= np.float32(2.35))
+                    & (np.abs(p[..., 1]) <= np.float32(1.05)) & live).any():
+                raise AssertionError(f"{preset}: the loader kept the "
+                                     f"capture car's returns")
+            tr = train(cfg, loader, 3, f"{preset} training", preset)
+            tr.save_weights(step=3)
+            del tr
+        if preset == "didi":
+            small_reference(rng, dev, small=small_didi_config(),
+                            label="didi ")
+            raw = os.path.join(work_dir, "raw")
+            write_raw_drive(raw, SynthDrive(rng, cfg, 4, 110000, ego=3000),
+                            cfg, date="1", drive_id="15", didi=True)
+            secs, counts, pred = run_main(tracking_cli.main, [
+                "-n", "didi", "--kitti-raw", raw, "--date", "1", "--drive",
+                "15", "--dataset", "didi", "--out-dir",
+                os.path.join(work_dir, "pred"), "--checkpoint-dir",
+                os.path.join(work_dir, "ckpt"), "--score-threshold", "0.0",
+                "--eval", "--device", dev.type], counters)
+            _expect(counts, {**none, "voxelize_sweep": 4},
+                    "tracking --dataset didi")
+            add(counts)
+            n_tracks = len(parse_tracklets(pred))
+            with open(os.path.join(os.path.dirname(pred),
+                                   "iou_per_obj.csv")) as f:
+                rows = f.read().splitlines()
+            with open(os.path.join(os.path.dirname(pred),
+                                   "pr_per_iou.csv")) as f:
+                n_pr = len(f.read().splitlines())
+            if rows[0] != "object_type,iou" or not rows[1].startswith(
+                    "All,") or n_pr != 9:
+                raise AssertionError(f"tracking --dataset didi: CSVs {rows}"
+                                     f", pr_per_iou.csv {n_pr} lines")
+            log(f"phase options: tracking --dataset didi --eval over a "
+                f"4-frame bag-converter drive: {secs:.2f} s, "
+                f"voxelize_sweep 4, {n_tracks} tracklets in the XML, "
+                f"iou_per_obj {rows[1:]} [{card}]")
+
+    cfg = kitti_config()
+    serve_cfg = with_pipeline(cfg, use_pallas_fused=True)
+    drive = SynthDrive(rng, cfg, 2, 110000)
+    with BatchLoader(drive, cfg, batch_size=2, seed=0) as loader:
+        for label, opts in OPTION_MODELS:
+            model = MV3D(with_model(serve_cfg, **opts), device=dev, seed=0)
+            serve(model, requests[:2], {"voxelize_sweep": 2},
+                  f"KITTI {label}, hwc")
+            del model
+            tr = train(with_model(cfg, **opts), loader, 1,
+                       f"KITTI {label} training", "option")
+            del tr
+            small_reference(rng, dev, small=with_model(_small_config(),
+                                                       **opts),
+                            label=f"{label} ")
     return total
 
 
@@ -1797,25 +2106,37 @@ def check_padded_kernel(rng, cfg, dev, n_pts):
     pts = torch.from_numpy(make_cloud(rng, 2, n_pts, cfg, tricky=True))
     _, _, flat, val, refl = vox._top_prep(pts, cfg, None, s2d="pad")
     refl = torch.where(flat < n_sc * 128, refl, 0.0)
+    (occupied, slots), err = check_padded((flat, val, refl), dev, n_sc,
+                                          t.zn, "path clouds")
+    log(f"phase kernel-vs-plain: voxelize_padded B=2 N={n_pts} "
+        f"n_sc={n_sc} heights f32 and bf16: heights/count/intensity "
+        f"bit-equal to the plain version on the card and on the CPU "
+        f"(occupied cells {occupied}, nonzero height slots {slots})")
+    return err
+
+
+def check_padded(cpu, dev, n_sc, zn, label):
+    """K2 on the card against its plain version on the card and on the
+    CPU, heights in f32 and bf16: bit-equal. ``cpu`` is (flat, hval,
+    refl) on the CPU. Returns ((occupied cells, nonzero height slots),
+    max |kernel - plain| (0))."""
+    import torch
+    from mv3d_tpu_torch.ops import voxelize_padded as vp
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        want = vp.scatter_top_padded_plain(flat, val, refl, n_sc, t.zn, dtype)
-        args = (flat.to(dev), val.to(dev), refl.to(dev), n_sc, t.zn, dtype)
+        want = vp.scatter_top_padded_plain(*cpu, n_sc, zn, dtype)
+        args = (*(x.to(dev) for x in cpu), n_sc, zn, dtype)
         got = vp.scatter_top_padded_kernel(*args)
         plain = vp.scatter_top_padded_plain(*args)
         torch.cuda.synchronize()
         for name, g, p, w in zip(("heights", "count", "intensity"), got,
                                  plain, want):
             if not (torch.equal(g, p) and torch.equal(g.cpu(), w)):
-                raise AssertionError(f"lane-padded kernel {name} ({dtype}) "
-                                     f"differs from its plain version")
+                raise AssertionError(f"lane-padded kernel {name} ({dtype}, "
+                                     f"{label}) differs from its plain "
+                                     f"version")
             err = max(err, (g.float() - p.float()).abs().max().item())
-        log(f"phase kernel-vs-plain: voxelize_padded B=2 N={n_pts} "
-            f"n_sc={n_sc} heights {str(dtype)[6:]}: heights/count/intensity "
-            f"bit-equal to the plain version on the card and on the CPU "
-            f"(occupied cells {int((want[1] > 0).sum())}, nonzero height "
-            f"slots {int((want[0] > 0).sum())})")
-    return err
+    return (int((want[1] > 0).sum()), int((want[0] > 0).sum())), err
 
 
 def padded_cases(rng, b, n, n_sc, zn):
@@ -1860,24 +2181,11 @@ def check_padded_cases(rng, dev, b, n, n_sc, zn):
     the CPU, heights in f32 and bf16: bit-equal. Returns the kinds'
     occupied cells and the max |kernel - plain| (0)."""
     import torch
-    from mv3d_tpu_torch.ops import voxelize_padded as vp
     occupied, err = {}, 0.0
     for kind, case in padded_cases(rng, b, n, n_sc, zn).items():
-        cpu = [torch.from_numpy(x) for x in case]
-        for dtype in (torch.float32, torch.bfloat16):
-            want = vp.scatter_top_padded_plain(*cpu, n_sc, zn, dtype)
-            args = (*(x.to(dev) for x in cpu), n_sc, zn, dtype)
-            got = vp.scatter_top_padded_kernel(*args)
-            plain = vp.scatter_top_padded_plain(*args)
-            torch.cuda.synchronize()
-            for name, g, p, w in zip(("heights", "count", "intensity"), got,
-                                     plain, want):
-                if not (torch.equal(g, p) and torch.equal(g.cpu(), w)):
-                    raise AssertionError(f"lane-padded kernel {name} "
-                                         f"({dtype}, {kind}) differs from "
-                                         f"its plain version")
-                err = max(err, (g.float() - p.float()).abs().max().item())
-        occupied[kind] = int((want[1] > 0).sum())
+        (occupied[kind], _), e = check_padded(
+            [torch.from_numpy(x) for x in case], dev, n_sc, zn, kind)
+        err = max(err, e)
     return occupied, err
 
 
@@ -1919,17 +2227,22 @@ def check_folded_views(rng, cfg, dev, n_pts):
         f"occupied cells)")
 
 
-def serve_requests(model, requests, counters, want):
+def serve_requests(model, requests, counters, want, times=None):
     """Serve ``requests`` through ``model.predict_from_points`` with the
     kernels' counts set to 0 just before; check each detection batch and
-    that each counter reads ``want[name]`` just after. Returns the
-    counts."""
+    that each counter reads ``want[name]`` just after. Appends each
+    request's wall ms (host clock, synchronized) to ``times`` where
+    given. Returns the counts."""
     import torch
     for fn in counters.values():
         fn.launches = 0
-    outs = [model.predict_from_points(p, n, r, THRESH)
-            for p, n, r in requests]
-    torch.cuda.synchronize()
+    outs = []
+    for p, n, r in requests:
+        t0 = time.time()
+        outs.append(model.predict_from_points(p, n, r, THRESH))
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.time() - t0) * 1e3)
     counts = {name: fn.launches for name, fn in counters.items()}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want} for "
@@ -1945,7 +2258,8 @@ def serve_requests(model, requests, counters, want):
         f"({cfg.pipeline.top_view_dtype} view, {cfg.model.roi_align_impl} "
         f"ROI-align, voxel_order={cfg.pipeline.voxel_order}): "
         f"{len(requests)} requests of B=2 x {requests[0][0].shape[1]} points "
-        f"at full KITTI width, kernel launches {counts}, live detections "
+        f"at full {cfg.dataset_type} width, kernel launches {counts}, live "
+        f"detections "
         f"{[int(d.mask.sum()) for d in outs]}")
     return counts
 
@@ -2510,8 +2824,14 @@ def main(argv=None) -> int:
         rng, cfg, dev, os.path.join(work_dirs[1], "eval_cmd"), data_dir,
         counters, card)
 
+    started("options")
+    # -- 8. the didi presets and the model options at full width ----------
+    option_launches = options_phase(
+        rng, dev, os.path.join(work_dirs[1], "options"), counters, requests,
+        card)
+
     started("timings")
-    # -- 8. timings --------------------------------------------------------
+    # -- 9. timings --------------------------------------------------------
     bounds = {b: kernel_bounds(b, n_pts, n_cells, zn, n_sc)
               for b in (1, 2, 8)}
     for name, (k_ms, p_ms, l_ms) in timed.items():
@@ -2637,30 +2957,35 @@ def main(argv=None) -> int:
                   source="mv3d_tpu_torch/csrc/voxelize_sweep.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:220",
                   launches=serve_launches + cmd_launches["voxelize_sweep"]
-                  + eval_launches["voxelize_sweep"],
+                  + eval_launches["voxelize_sweep"]
+                  + option_launches["voxelize_sweep"],
                   max_abs_err=sweep_err),
               "voxelize_padded": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_padded.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:886",
                   launches=padded_launches
                   + cmd_launches["voxelize_padded"]
-                  + eval_launches["voxelize_padded"],
+                  + eval_launches["voxelize_padded"]
+                  + option_launches["voxelize_padded"],
                   max_abs_err=padded_err),
               "voxelize_heights": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:46",
                   launches=train_launches
                   + cmd_launches["voxelize_heights"]
-                  + eval_launches["voxelize_heights"],
+                  + eval_launches["voxelize_heights"]
+                  + option_launches["voxelize_heights"],
                   max_abs_err=heights_err),
               "sort_radix": dict(
                   source="mv3d_tpu_torch/csrc/sort_radix.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",
-                  launches=http_launches, max_abs_err=sort_err),
+                  launches=http_launches + option_launches["sort_radix"],
+                  max_abs_err=sort_err),
               "sort_merge": dict(
                   source="mv3d_tpu_torch/csrc/sort_merge.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",
-                  launches=long_launches, max_abs_err=merge_err)}
+                  launches=long_launches + option_launches["sort_merge"],
+                  max_abs_err=merge_err)}
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", **rec, ms=timed[name][0],

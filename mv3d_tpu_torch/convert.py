@@ -8,6 +8,11 @@ port's modules carry flax's own names (``trunk/Bottleneck_0/Conv_1`` is
 
   * conv ``kernel`` HWIO -> ``weight`` OIHW; dense ``kernel`` (in, out) ->
     ``weight`` (out, in); ``bias`` -> ``bias``;
+  * a transposed conv's ``kernel`` (a module flax auto-names
+    ``ConvTranspose_<i>``) HWIO -> ``weight`` (in, out, kh, kw) flipped in
+    both spatial dims: flax's ``ConvTranspose`` correlates the dilated
+    input with its kernel as given, ``F.conv_transpose2d`` with the
+    kernel flipped (:class:`mv3d_tpu_torch.models.backbone.ConvTranspose2d`);
   * BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and ``mean``/``var``
     -> ``running_mean``/``running_var`` (plus a zero
     ``num_batches_tracked``, which flax does not keep).
@@ -52,11 +57,19 @@ def _torch_bn_modules(state_dict: Mapping[str, torch.Tensor]):
             or (key.endswith(".weight") and t.dim() == 1)}
 
 
-def _kernel_to_torch(a: np.ndarray) -> np.ndarray:
+def _transposed(mod) -> bool:
+    return bool(mod) and mod[-1].startswith("ConvTranspose")
+
+
+def _kernel_to_torch(a: np.ndarray, transposed: bool = False) -> np.ndarray:
+    if transposed:
+        return a[::-1, ::-1].transpose(2, 3, 0, 1)
     return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
 
 
-def _kernel_to_flax(a: np.ndarray) -> np.ndarray:
+def _kernel_to_flax(a: np.ndarray, transposed: bool = False) -> np.ndarray:
+    if transposed:
+        return a.transpose(2, 3, 0, 1)[::-1, ::-1]
     return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
 
 
@@ -71,7 +84,7 @@ def subnet_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if mod in bn:
                 name = _BN_LEAVES[leaf]
             elif leaf == "kernel":
-                name, a = "weight", _kernel_to_torch(a)
+                name, a = "weight", _kernel_to_torch(a, _transposed(mod))
             elif leaf == "bias":
                 name = "bias"
             else:
@@ -100,7 +113,8 @@ def subnet_variables(state_dict: Mapping[str, torch.Tensor]
             collection = ("batch_stats" if name.startswith("running_")
                           else "params")
         elif name == "weight":
-            leaf, a, collection = "kernel", _kernel_to_flax(a), "params"
+            leaf, collection = "kernel", "params"
+            a = np.ascontiguousarray(_kernel_to_flax(a, _transposed(mod)))
         else:
             leaf, collection = name, "params"
         node = out[collection]

@@ -9,8 +9,8 @@ strict-inequality crops in f32, intensity of the first point of largest
 ``min(1, log(count + 1) / log 32)``. This is host code: the loader's
 prefetch thread runs it while the card trains, and the device computes
 only the height channels (:mod:`mv3d_tpu_torch.ops.voxelize_heights`).
-KITTI only, as the rest of the port (the didi presets' center-car filter
-is ROADMAP A1).
+The didi presets drop the capture car's own returns (the center-car
+filter) in both, as the native library does for them.
 """
 
 from __future__ import annotations
@@ -20,18 +20,22 @@ from typing import Tuple
 import numpy as np
 
 from ..config import Config, cfg as _default_cfg
-from ..ops.voxelize import check_dataset
+from ..ops.voxelize import CENTER_CAR_DATASETS, check_dataset
 
 
 def crop_mask(points: np.ndarray, cfg: Config = _default_cfg) -> np.ndarray:
-    """(N, >=3) -> (N,) strict-bound crop mask, compared in f32."""
+    """(N, >=3) -> (N,) strict-bound crop mask, compared in f32, with the
+    center-car filter of the didi presets."""
     check_dataset(cfg)
     t = cfg.top
     f = np.float32
     x, y, z = points[:, 0], points[:, 1], points[:, 2]
-    return ((x > f(t.x_min)) & (x < f(t.x_max)) &
-            (y > f(t.y_min)) & (y < f(t.y_max)) &
-            (z > f(t.z_min)) & (z < f(t.z_max)))
+    m = ((x > f(t.x_min)) & (x < f(t.x_max)) &
+         (y > f(t.y_min)) & (y < f(t.y_max)) &
+         (z > f(t.z_min)) & (z < f(t.z_max)))
+    if cfg.dataset_type in CENTER_CAR_DATASETS:
+        m &= (np.abs(x) > f(4.7 / 2)) | (np.abs(y) > f(2.1 / 2))
+    return m
 
 
 def crop_pad(points: np.ndarray, max_points: int,
@@ -52,7 +56,7 @@ def lidar_to_top_aux(points: np.ndarray, cfg: Config = _default_cfg
                      ) -> np.ndarray:
     """(N, 4) lidar points -> (Xn, Yn, 2) [intensity, density] plane,
     f32, with the top view's flipped indexing (row Xn-1-qx, col Yn-1-qy).
-    Points are cropped here (strict bounds)."""
+    Points are cropped here (strict bounds, the center-car filter)."""
     t = cfg.top
     xn, yn = t.xn, t.yn
     points = np.ascontiguousarray(points, dtype=np.float32)

@@ -1,9 +1,11 @@
 """Backbone building blocks as ``nn.Module``s (NCHW inside).
 
 Port of ``mv3d_tpu/models/backbone.py``: ``ConvBnRelu``, ``DenseBnRelu``,
-the pre-activation ``Bottleneck``, ``space_to_depth`` and ``ResnetTiny``
-with the space-to-depth stems (``s2d_factor`` 2 and 4), the prefolded
-stem of the ``s2d2`` view and the split stem of the ``s2d2p`` pair.
+the bilinear ``Upsample2D`` deconv, the pre-activation ``Bottleneck`` and
+``BasicBlock``, ``space_to_depth`` and ``ResnetTiny`` with the 7x7/2 stem
+(``s2d_factor=0``), the space-to-depth stems (``s2d_factor`` 2 and 4),
+the prefolded stem of the ``s2d2`` view and the split stem of the
+``s2d2p`` pair.
 
 Submodule names are flax's auto-names (``Conv_0``, ``BatchNorm_1``,
 ``Bottleneck_3`` ...), so a flax variable path maps onto a ``state_dict``
@@ -15,13 +17,16 @@ the dtype its weights are held in (the compute dtype for inference, f32
 master weights for training: flax's ``dtype`` over f32 params), BatchNorm
 runs in f32, and the ReLU output is cast back to the compute dtype.
 :class:`BatchNorm` has flax's training semantics (see its note). Flax's
-``"SAME"`` padding is reproduced exactly: convs here are stride 1 with
-odd kernels or 1x1 (symmetric), and the 3x3/2 max-pool pads (lo, hi) =
-(total//2, total - total//2) with -inf.
-
-Not ported (``NotImplementedError``): the 7x7/2 stem (``s2d_factor=0``),
-``backbone_block="basic"`` and the bilinear ``Upsample2D`` deconv
-(``upsample_features``) — ROADMAP A3.
+``"SAME"`` padding is reproduced exactly: a stride-1 conv with an odd
+kernel or a 1x1 conv pads symmetrically; a strided conv with a larger
+kernel (the 7x7/2 stem, a basic block's 3x3/2) and the max-pools pad
+(lo, hi) = (total//2, total - total//2) at run time, which is (2, 3) for
+a 7x7/2 conv and (0, 1) for a 3x3/2 conv on an even size (zeros for the
+convs, -inf for the pools). The transposed conv of ``Upsample2D`` is
+``lax.conv_transpose`` with ``transpose_kernel=False``: a correlation of
+the stride-dilated input with the kernel as given, which
+``F.conv_transpose2d`` computes with the kernel flipped
+(:class:`ConvTranspose2d`).
 """
 
 from __future__ import annotations
@@ -69,6 +74,35 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """Flax's ``nn.ConvTranspose(features, (k, k), strides=(f, f),
+    padding="SAME")`` on NCHW, computing in ``compute_dtype``.
+
+    The weight is torch's (in, out, k, k) layout holding flax's
+    (k, k, in, out) kernel flipped in both spatial dims
+    (:mod:`mv3d_tpu_torch.convert` maps it), since ``F.conv_transpose2d``
+    correlates with the flipped kernel. Flax's SAME padding of the
+    dilated input, (k + f - 2) split with ``ceil`` to the front (or k - 1
+    when f > k - 1), is symmetric for the bilinear sizes k = 2f - f%2, and
+    equals ``padding = k - 1 - lo``: outputs are f times the input."""
+    compute_dtype = torch.float32
+
+    def __init__(self, in_c: int, out_c: int, kernel: int, stride: int):
+        total = kernel + stride - 2
+        lo = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+        if 2 * lo != total:
+            raise ValueError(f"{kernel}x{kernel}/{stride} transposed conv: "
+                             f"flax's SAME padding is not symmetric")
+        super().__init__(in_c, out_c, kernel, stride,
+                         padding=kernel - 1 - lo, bias=True)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt), self.stride,
+                                  self.padding)
 
 
 class Linear(nn.Linear):
@@ -121,16 +155,29 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         return y
 
 
+class StridedConv2d(Conv2d):
+    """A strided conv with a kernel above 1x1, padded as flax "SAME" pads
+    it: (lo, hi) zeros per spatial dim from the input's size."""
+
+    def forward(self, x):
+        k, s = self.kernel_size[0], self.stride[0]
+        ph = same_pads(x.shape[2], k, s)
+        pw = same_pads(x.shape[3], k, s)
+        return super().forward(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
+
+
 def conv(in_c: int, out_c: int, kernel: int = 1, stride: int = 1,
          bias: bool = False) -> Conv2d:
-    """A conv whose symmetric padding equals flax "SAME" (stride 1 with an
-    odd kernel, or any 1x1)."""
+    """A conv with flax's "SAME" padding: symmetric for stride 1 with an
+    odd kernel or any 1x1, from the input's size otherwise."""
     if stride != 1 and kernel != 1:
-        raise NotImplementedError(
-            f"{kernel}x{kernel}/{stride} conv: only stride-1 or 1x1 convs "
-            f"are ported (ROADMAP A3)")
+        return StridedConv2d(in_c, out_c, kernel, stride, bias=bias)
     return Conv2d(in_c, out_c, kernel, stride, padding=kernel // 2,
                   bias=bias)
+
+
+# the layers that compute in the model's compute dtype
+COMPUTE_LAYERS = (Conv2d, ConvTranspose2d, Linear)
 
 
 def bn_relu(bn: nn.Module, x: torch.Tensor, dtype: torch.dtype):
@@ -159,6 +206,41 @@ class DenseBnRelu(nn.Module):
     def forward(self, x):
         dtype = self.Dense_0.compute_dtype
         return bn_relu(self.BatchNorm_0, self.Dense_0(x.to(dtype)), dtype)
+
+
+def bilinear_kernel(factor: int) -> torch.Tensor:
+    """The bilinear-interpolation (k, k) filter of flax's
+    ``bilinear_kernel_init``, k = 2f - f%2."""
+    size = 2 * factor - factor % 2
+    center = (size - 1) / 2.0 if size % 2 == 1 else factor - 0.5
+    og = torch.arange(size, dtype=torch.float64)
+    filt = 1 - (og - center).abs() / factor
+    return (filt[:, None] * filt[None, :]).to(torch.float32)
+
+
+class Upsample2D(nn.Module):
+    """Trainable x``factor`` deconv upsampling, bilinear at
+    initialization (:meth:`init_bilinear`)."""
+
+    def __init__(self, channels: int, factor: int):
+        super().__init__()
+        self.factor = factor
+        self.ConvTranspose_0 = ConvTranspose2d(
+            channels, channels, 2 * factor - factor % 2, factor)
+
+    @torch.no_grad()
+    def init_bilinear(self) -> None:
+        """Flax's init: the bilinear filter on each channel's diagonal
+        (symmetric, so its flip is itself), zero bias."""
+        w = self.ConvTranspose_0.weight
+        w.zero_()
+        filt = bilinear_kernel(self.factor)
+        for c in range(min(w.shape[0], w.shape[1])):
+            w[c, c] = filt
+        self.ConvTranspose_0.bias.zero_()
+
+    def forward(self, x):
+        return self.ConvTranspose_0(x)
 
 
 class Bottleneck(nn.Module):
@@ -193,6 +275,39 @@ class Bottleneck(nn.Module):
         return h + shortcut
 
 
+class BasicBlock(nn.Module):
+    """Pre-activation basic block (two 3x3 convs, no expansion); the
+    projection shortcut is ``Conv_2``."""
+
+    def __init__(self, in_c: int, filters: int, stride: int = 1,
+                 plain_entry: bool = False):
+        super().__init__()
+        self.plain_entry = plain_entry
+        bns = [in_c] if not plain_entry else []
+        bns += [filters]
+        for i, c in enumerate(bns):
+            self.add_module(f"BatchNorm_{i}", BatchNorm(c))
+        self.Conv_0 = conv(in_c, filters, 3, stride)
+        self.Conv_1 = conv(filters, filters, 3)
+        self.has_shortcut = in_c != filters or stride != 1
+        if self.has_shortcut:
+            self.Conv_2 = conv(in_c, filters, 1, stride)
+
+    def forward(self, x):
+        dtype = self.Conv_0.compute_dtype
+        x = x.to(dtype)
+        bn = iter([getattr(self, f"BatchNorm_{i}")
+                   for i in range(1 if self.plain_entry else 2)])
+        h = x if self.plain_entry else bn_relu(next(bn), x, dtype)
+        h = bn_relu(next(bn), self.Conv_0(h), dtype)
+        h = self.Conv_1(h)
+        shortcut = self.Conv_2(x) if self.has_shortcut else x
+        return h + shortcut
+
+
+BLOCKS = {"bottleneck": (Bottleneck, 4), "basic": (BasicBlock, 1)}
+
+
 def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/f, W/f, C*f*f), channel ``(dy*f + dx)*C + c``;
     trailing rows/cols are zero-padded to a multiple of ``factor``."""
@@ -207,10 +322,11 @@ def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 class ResnetTiny(nn.Module):
-    """Stride-8 tiny bottleneck ResNet with a space-to-depth stem: factor 2
-    is s2d/2 + 3x3 conv + 3x3/2 max-pool, factor 4 is s2d/4 + 3x3 conv.
-    Input NHWC, output NCHW with ``base_filters * 2**(len(reps)-1) * 4``
-    channels.
+    """Stride-8 tiny pre-activation ResNet. The stem: factor 0 is a 7x7/2
+    conv + 3x3/2 max-pool, factor 2 s2d/2 + 3x3 conv + 3x3/2 max-pool,
+    factor 4 s2d/4 + 3x3 conv. ``block`` is ``"bottleneck"`` or
+    ``"basic"``. Input NHWC, output NCHW with ``base_filters *
+    2**(len(reps)-1)`` channels, times 4 for bottlenecks.
 
     ``input_prefolded`` (factor 2): the input is already the folded
     ``s2d2`` view, so the stem skips ``space_to_depth``. ``split_stem``
@@ -228,14 +344,11 @@ class ResnetTiny(nn.Module):
                  input_prefolded: bool = False, split_stem: bool = False,
                  crop_w: int = 0):
         super().__init__()
-        if s2d_factor not in (2, 4):
-            raise NotImplementedError(
-                f"s2d_factor={s2d_factor}: only the space-to-depth stems "
-                f"(2, 4) are ported; the 7x7/2 stem is ROADMAP A3")
-        if block != "bottleneck":
-            raise NotImplementedError(
-                f"backbone_block={block!r}: only 'bottleneck' is ported "
-                f"(ROADMAP A3)")
+        if s2d_factor not in (0, 2, 4):
+            raise ValueError(f"unsupported s2d_factor {s2d_factor}")
+        if block not in BLOCKS:
+            raise ValueError(f"backbone_block={block!r}: expected one of "
+                             f"{tuple(BLOCKS)}")
         if (input_prefolded or split_stem) and s2d_factor != 2:
             raise ValueError("the folded stems need s2d_factor=2")
         self.s2d_factor = s2d_factor
@@ -248,18 +361,23 @@ class ResnetTiny(nn.Module):
             self.stem_h = conv(128, base_filters, 3)
             self.stem_aux = conv(8, base_filters, 3)
             self.stem_bn = BatchNorm(base_filters)
+        elif s2d_factor == 0:
+            self.ConvBnRelu_0 = ConvBnRelu(in_c, base_filters, 7, 2)
         else:
             self.ConvBnRelu_0 = ConvBnRelu(in_c * s2d_factor ** 2,
                                            base_filters)
-        filters, c, k = base_filters, base_filters, 0
+        block_cls, expansion = BLOCKS[block]
+        self.blocks = []
+        filters, c = base_filters, base_filters
         for i, reps in enumerate(repetitions):
             for j in range(reps):
                 stride = 2 if (j == 0 and i != 0) else 1
-                self.add_module(f"Bottleneck_{k}", Bottleneck(
+                name = f"{block_cls.__name__}_{len(self.blocks)}"
+                self.add_module(name, block_cls(
                     c, filters, stride, plain_entry=(i == 0 and j == 0)))
-                c, k = filters * 4, k + 1
+                self.blocks.append(name)
+                c = filters * expansion
             filters *= 2
-        self.n_blocks = k
         self.out_channels = c
 
     def _split_stem(self, x):
@@ -275,11 +393,11 @@ class ResnetTiny(nn.Module):
         if self.split_stem:
             x = self._split_stem(x)
         else:
-            if not self.input_prefolded:
+            if self.s2d_factor and not self.input_prefolded:
                 x = space_to_depth(x, self.s2d_factor)
             x = self.ConvBnRelu_0(x.permute(0, 3, 1, 2))
-            if self.s2d_factor == 2:
+            if self.s2d_factor != 4:
                 x = max_pool_same(x, 3, 2)
-        for k in range(self.n_blocks):
-            x = getattr(self, f"Bottleneck_{k}")(x)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
         return x

@@ -1,8 +1,9 @@
 """MV3DNet — the assembled multi-view detector: inference and training.
 
 Port of ``mv3d_tpu/models/mv3d_net.py``: ``project_to_rgb_roi``,
-``project_to_front_roi``, ``MV3DNet.__init__``, ``anchor_mask`` (occupancy
-path), ``extract_features``, ``pool_rois``, ``forward_inference``,
+``enlarge_rois``, ``project_to_front_roi``, ``MV3DNet.__init__``,
+``anchor_mask`` (occupancy path), ``extract_features``, ``pool_rois``
+(with the siamese context pooling), ``forward_inference``,
 ``forward_train`` and ``total_loss``. Every per-frame stage the JAX
 package ``vmap``s is written batched over the leading dimension.
 
@@ -30,8 +31,9 @@ folded ``"s2d2"`` view (the trunk's stem skips ``space_to_depth``) or the
 lane-padded ``"s2d2p"`` (heights, aux) pair (the trunk's split stem);
 ``anchor_mask`` reads the folded occupancy of the folded layouts.
 
-Not ported (``NotImplementedError``): ``quant="int8"`` (ROADMAP A9), plus
-the options the modules below reject.
+Every dataset preset (``kitti``, ``didi``, ``didi2``) and model option
+of the JAX package is ported but ``quant="int8"`` (ROADMAP A9), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ from ..ops.roi_align import roi_align, roi_align_matmul
 from ..ops.voxelize import check_dataset, check_view_layout, f32c
 from ..train import losses as loss_lib
 from ..train import targets as target_lib
-from .backbone import BatchNorm, Conv2d, Linear
+from .backbone import (COMPUTE_LAYERS, BatchNorm, Conv2d, Linear,
+                       Upsample2D)
 from .nets import (FRONT_FEATURE, FUSION, IMAGE_FEATURE, SUBNET_NAMES,
                    TOP_VIEW_RPN, FrontFeatureNet, FusionHead, RgbFeatureNet,
                    TopRPN)
@@ -66,6 +69,16 @@ def project_to_rgb_roi(rois3d: torch.Tensor, cfg: Config) -> torch.Tensor:
     proj = box3d_ops.box3d_to_rgb_box(rois3d, cfg).to(torch.float32)
     return torch.stack([proj[..., 0].amin(-1), proj[..., 1].amin(-1),
                         proj[..., 0].amax(-1), proj[..., 1].amax(-1)],
+                       dim=-1)
+
+
+def enlarge_rois(rois: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Scale (..., 4) boxes about their centers by ``ratio``."""
+    cx = (rois[..., 0] + rois[..., 2]) / 2.0
+    cy = (rois[..., 1] + rois[..., 3]) / 2.0
+    w = (rois[..., 2] - rois[..., 0]) * ratio
+    h = (rois[..., 3] - rois[..., 1]) * ratio
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
                        dim=-1)
 
 
@@ -155,7 +168,7 @@ class MV3DNet(nn.Module):
 
         dtype = getattr(torch, m.compute_dtype)
         for mod in self.modules():
-            if isinstance(mod, (Conv2d, Linear)):
+            if isinstance(mod, COMPUTE_LAYERS):
                 mod.compute_dtype = dtype
                 mod.to(dtype)
 
@@ -163,7 +176,7 @@ class MV3DNet(nn.Module):
         """Hold the conv and dense weights in f32 (training's master
         weights); they still compute in the compute dtype."""
         for mod in self.modules():
-            if isinstance(mod, (Conv2d, Linear)):
+            if isinstance(mod, COMPUTE_LAYERS):
                 mod.float()
         return self
 
@@ -172,9 +185,12 @@ class MV3DNet(nn.Module):
         """Random weights from ``generator`` (a CPU generator, so a seed
         gives the same weights on every device): LeCun-normal conv/dense
         kernels and zero biases (flax's defaults, untruncated), identity
-        BatchNorm."""
+        BatchNorm, the deconvs of ``Upsample2D`` bilinear (their flax
+        init)."""
         for mod in self.modules():
-            if isinstance(mod, (Conv2d, Linear)):
+            if isinstance(mod, Upsample2D):
+                mod.init_bilinear()
+            elif isinstance(mod, (Conv2d, Linear)):
                 w = mod.weight
                 std = w[0].numel() ** -0.5
                 w.copy_(torch.randn(w.shape, generator=generator) * std)
@@ -240,7 +256,9 @@ class MV3DNet(nn.Module):
 
     def pool_rois(self, feats: Dict[str, torch.Tensor], rois3d: torch.Tensor,
                   top_rois: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Batched multi-view ROI align.
+        """Batched multi-view ROI align; with ``use_siamese_fusion`` also
+        each view's ``{view}_ctx`` pooling over the rois enlarged by
+        ``roi_enlarge_ratio``.
 
         Args:
           feats: view name -> (B, H, W, C) feature map.
@@ -255,7 +273,12 @@ class MV3DNet(nn.Module):
             rois["rgb"] = project_to_rgb_roi(rois3d, self.cfg)
         if "front" in self.views:
             rois["front"] = project_to_front_roi(rois3d, self.cfg)
-        return {name: align(feats[name], r, 1.0 / m.pool_stride(name),
+        if m.use_siamese_fusion:
+            # the context branch pools the same maps over enlarged rois
+            rois.update({name + "_ctx": enlarge_rois(r, m.roi_enlarge_ratio)
+                         for name, r in list(rois.items())})
+        return {name: align(feats[name.removesuffix("_ctx")], r,
+                            1.0 / m.pool_stride(name.removesuffix("_ctx")),
                             m.roi_pool_size)
                 for name, r in rois.items()}
 

@@ -17,7 +17,7 @@ import torch
 
 from ..config import Config, cfg as _default_cfg
 
-from .voxelize import check_dataset
+from .projection import DIDI_PROJ_MAT
 
 
 def top_to_lidar_coords(xx, yy, cfg: Config = _default_cfg):
@@ -75,24 +75,53 @@ def _affine(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_INT32 = torch.iinfo(torch.int32)
+
+
+def trunc_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 as XLA converts: toward zero, out-of-range values
+    saturated at the int32 limits, NaN to 0. (A plain ``.to(torch.int32)``
+    turns them all into ``INT_MIN`` on the CPU: a corner on the camera
+    plane would clamp to the wrong edge of the image.)"""
+    high = x >= 2.0 ** 31              # INT_MAX is not an f32
+    x = torch.where(torch.isnan(x) | high, 0.0, x).clamp(min=-2.0 ** 31)
+    return torch.where(high, _INT32.max, x.to(torch.int32))
+
+
 def box3d_to_rgb_box(boxes3d: torch.Tensor,
                      cfg: Config = _default_cfg) -> torch.Tensor:
     """Project (..., 8, 3) lidar boxes into image pixels (..., 8, 2),
-    truncated to int32 (KITTI branch: [P|1] @ Mt, then @ Kt, then divide by
-    depth).
+    truncated to int32 (:func:`trunc_to_int32`).
+
+    KITTI: [P|1] @ Mt, then @ Kt, then divide by depth. The other presets
+    (didi): [P|1] through the calibrated 3x4 ``DIDI_PROJ_MAT``, divide by
+    depth, shift into the cropped image (``image_crop_left/top``) and clamp
+    to it; a box is zeroed when none of its corners has x > 0 or fewer
+    than 2 corners fall inside the cropped image.
 
     The truncation turns a last-bit difference into a one-pixel move, so
     the products are summed in a fixed order (:func:`_affine`) and the card
     gives the CPU's pixels bit for bit."""
-    check_dataset(cfg)
     dev = boxes3d.device
-    mt = torch.tensor(cfg.matrix_mt, dtype=torch.float32, device=dev)
-    kt = torch.tensor(cfg.matrix_kt, dtype=torch.float32, device=dev)
     b = boxes3d.to(torch.float32)
     ps = torch.cat([b, torch.ones_like(b[..., :1])], dim=-1)
-    qs = _affine(_affine(ps, mt)[..., :3], kt)
-    pix = qs[..., :2] / qs[..., 2:3]
-    return pix.to(torch.int32)       # truncates toward zero
+    if cfg.dataset_type == "kitti":
+        mt = torch.tensor(cfg.matrix_mt, dtype=torch.float32, device=dev)
+        kt = torch.tensor(cfg.matrix_kt, dtype=torch.float32, device=dev)
+        qs = _affine(_affine(ps, mt)[..., :3], kt)
+        return trunc_to_int32(qs[..., :2] / qs[..., 2:3])
+    p = torch.tensor(DIDI_PROJ_MAT.T, dtype=torch.float32, device=dev)
+    qs = _affine(ps, p)
+    pix = trunc_to_int32(qs[..., :2] / qs[..., 2:3])
+    h, w, _ = cfg.rgb_shape
+    # int32 arithmetic wraps in XLA: a saturated pixel shifted by the crop
+    # wraps to the far side, as there (int64, then cut to 32 bits)
+    u = (pix[..., 0].long() - cfg.image_crop_left).to(torch.int32)
+    v = (pix[..., 1].long() - cfg.image_crop_top).to(torch.int32)
+    in_range = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    out = torch.stack([u.clamp(0, w - 1), v.clamp(0, h - 1)], dim=-1)
+    keep = ((b[..., 0] > 0).sum(-1) > 0) & (in_range.sum(-1) >= 2)
+    return torch.where(keep[..., None, None], out, 0).to(torch.int32)
 
 
 def _rms_scale(boxes3d: torch.Tensor) -> torch.Tensor:

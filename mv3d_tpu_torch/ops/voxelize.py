@@ -2,8 +2,9 @@
 
 Port of ``mv3d_tpu/ops/voxelize.py``. Semantics are bit-identical to the
 JAX package and to its numpy oracle ``mv3d_tpu/ops/voxelize_ref.py``:
-strict crops, the inclusive slice-boundary redirect, first-max-point
-intensity and log-count density.
+strict crops, the didi presets' center-car filter on the top view only,
+the inclusive slice-boundary redirect, first-max-point intensity and
+log-count density.
 
 The top view comes in the three layouts of ``pipeline.view_layout``:
 
@@ -39,7 +40,10 @@ not a power of two, where JAX takes ``lax.sort``, ``"sort"`` and
 ``"bin"``, and without ``use_pallas_fused``, where JAX scatters with XLA.
 A stable sort keeps equal ``flat`` in their order, so the view is
 bit-equal to the unsorted one.
-Non-KITTI datasets raise ``NotImplementedError`` (ROADMAP A1).
+
+Where the grid's z range is not a whole number of slices (the didi
+presets: 3.7 / 0.3 = 12.33 slices in 12), the top slice takes the points
+above it too, so its height value reaches 1.33.
 
 Quantization divides by a 0-dim tensor on the points' device, never by a
 Python float: PyTorch's CUDA division by a CPU scalar multiplies by its
@@ -72,11 +76,15 @@ def f32c(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+DATASETS = ("kitti", "didi", "didi2", "test")
+# the datasets whose capture car's own returns are cropped from the top view
+CENTER_CAR_DATASETS = ("didi", "didi2", "test")
+
+
 def check_dataset(cfg: Config) -> None:
-    if cfg.dataset_type != "kitti":
-        raise NotImplementedError(
-            f"dataset_type={cfg.dataset_type!r}: only the KITTI preset is "
-            f"ported (didi crop/center-car filter and projection: ROADMAP A1)")
+    if cfg.dataset_type not in DATASETS:
+        raise ValueError(f"dataset_type={cfg.dataset_type!r}: expected one "
+                         f"of {DATASETS}")
 
 
 def check_view_layout(cfg: Config) -> None:
@@ -112,14 +120,20 @@ def folded_pad_width(yn: int) -> int:
 
 
 def _crop_mask(points: torch.Tensor, cfg: Config,
-               num_points: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, N, 4) -> (B, N) strict-bound crop + padding mask."""
+               num_points: Optional[torch.Tensor],
+               filter_center_car: bool = True) -> torch.Tensor:
+    """(B, N, 4) -> (B, N) strict-bound crop + padding mask; with
+    ``filter_center_car`` (the top view) the didi presets also drop the
+    capture car's 4.7 x 2.1 m box around the origin (the front view keeps
+    it, as in the JAX package)."""
     check_dataset(cfg)
     t = cfg.top
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     m = ((x > f32c(t.x_min, x)) & (x < f32c(t.x_max, x)) &
          (y > f32c(t.y_min, y)) & (y < f32c(t.y_max, y)) &
          (z > f32c(t.z_min, z)) & (z < f32c(t.z_max, z)))
+    if filter_center_car and cfg.dataset_type in CENTER_CAR_DATASETS:
+        m &= ((x.abs() > f32c(4.7 / 2, x)) | (y.abs() > f32c(2.1 / 2, y)))
     if num_points is not None:
         idx = torch.arange(points.shape[-2], device=points.device)
         m &= idx < num_points.to(points.device).reshape(-1, 1)
@@ -350,7 +364,7 @@ def front_pixels(points: torch.Tensor, cfg: Config = _default_cfg,
     (column * height + row), ``width * height`` where the point is cropped
     or falls outside the view."""
     f = cfg.front
-    valid = _crop_mask(points, cfg, num_points)
+    valid = _crop_mask(points, cfg, num_points, filter_center_car=False)
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     # int() truncation toward zero, as the f32 -> int32 cast
     pc = (torch.atan2(y, x) / f32c(f.angular_res, x)).to(torch.int32)

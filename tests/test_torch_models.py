@@ -1,7 +1,8 @@
 """Port parity of the networks: each trunk and the FusionHead against the
 flax modules with the same (converted) weights, in f32
 (``model.compute_dtype="float32"``), within rtol/atol 1e-4; the weight
-converter round-trips every parameter; unported options raise.
+converter round-trips every parameter; int8, the one unported option,
+raises (the other options: tests/test_torch_options.py).
 
 BatchNorm statistics and affine parameters are drawn at random (flax
 initializes them to the identity), so the converter's BatchNorm mapping is
@@ -19,7 +20,6 @@ from __graft_entry__ import _tiny_config
 from mv3d_tpu.models.mv3d_net import MV3DNet as JaxMV3DNet
 from mv3d_tpu.models.nets import FusionHead as JaxFusionHead
 from mv3d_tpu_torch import convert
-from mv3d_tpu_torch.config import make_config
 from mv3d_tpu_torch.models.mv3d_net import MV3DNet
 from mv3d_tpu_torch.models.nets import SUBNET_NAMES, FusionHead
 
@@ -161,20 +161,9 @@ def test_bf16_compute_keeps_batchnorm_f32():
     assert out["features"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("field,value", [
-    ("upsample_features", True),
-    ("rgb_basenet", "vgg"), ("backbone_block", "basic"),
-    ("stem_space_to_depth", False), ("use_siamese_fusion", True),
-    ("use_handcraft_fusion", True), ("use_learnable_fusion", True),
-    ("quant", "int8")])
+@pytest.mark.parametrize("field,value", [("quant", "int8")])
 def test_unported_model_options_raise(field, value):
     cfg = dataclasses.replace(PCFG, model=dataclasses.replace(
         PCFG.model, **{field: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MV3DNet(cfg)
-
-
-@pytest.mark.parametrize("preset", ["didi", "didi2"])
-def test_non_kitti_presets_raise(preset):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MV3DNet(make_config(preset))

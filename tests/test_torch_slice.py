@@ -159,9 +159,10 @@ from mv3d_tpu_torch.experiments import task
 from mv3d_tpu_torch.utils import (dashboard, datacheck, logger, metrics, png,
                                   timer, viz)
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
-                                nms, proposal, quantize, roi_align, sort,
-                                sort_bitonic, voxelize, voxelize_heights,
-                                voxelize_padded, voxelize_sweep)
+                                nms, projection, proposal, quantize,
+                                roi_align, sort, sort_bitonic, voxelize,
+                                voxelize_heights, voxelize_padded,
+                                voxelize_sweep)
 from mv3d_tpu_torch.models import backbone, mv3d_net, nets
 from mv3d_tpu_torch.train import (augment, checkpoint, losses, targets,
                                   trainer)
@@ -180,6 +181,25 @@ dets = trainer.MV3D(cfg, device="cpu", seed=0).predict_from_points(
 assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
 serve = mv3d_tpu_torch.serving_config(cfg)
 dets = trainer.MV3D(serve, device="cpu", seed=0).predict_from_points(
+    pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
+assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
+didi = config.make_config("didi")
+didi = dataclasses.replace(
+    didi, top=dataclasses.replace(didi.top, x_min=-12, x_max=12, y_min=-6,
+                                  y_max=6),
+    pipeline=dataclasses.replace(didi.pipeline, max_points=2048),
+    image_width=96, image_height=100, image_crop_top=30,
+    image_crop_bottom=20)
+dpts = np.stack([rng.uniform(-12, 12, 512), rng.uniform(-6, 6, 512),
+                 rng.uniform(-3, 0.7, 512), rng.uniform(0, 1, 512)], -1)
+dets = trainer.MV3D(didi, device="cpu", seed=0).predict_from_points(
+    dpts.astype(np.float32), 512, rng.rand(50, 96, 3).astype(np.float32))
+assert dets.boxes3d.shape == (1, didi.rpn.nms_post_topn, 8, 3)
+options = dataclasses.replace(cfg, model=dataclasses.replace(
+    cfg.model, upsample_features=True, stem_space_to_depth=False,
+    rgb_basenet="vgg", backbone_block="basic", use_siamese_fusion=True,
+    use_learnable_fusion=True))
+dets = trainer.MV3D(options, device="cpu", seed=0).predict_from_points(
     pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
 assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
 drive = chip_smoke.SynthDrive(rng, cfg, 2, 3000, cars=(2, 2))
@@ -245,7 +265,10 @@ print("ok")
 
 def test_port_never_imports_jax():
     """Every port module, its CLI and ``chip_smoke`` import, predict (the
-    hwc and the s2d2p serving configuration), train, export an artifact
+    hwc and the s2d2p serving configuration, a tiny didi preset and a
+    model with every option: the reference graph's upsampling and 7x7
+    stem, basic blocks, the VGG rgb trunk, siamese and learnable fusion),
+    train, export an artifact
     that answers one HTTP /predict request, run the train command on a
     tiny KITTI directory written to disk, then the test command
     (test_mv3d, export_kitti, probe_rpn), the preprocess command, a

@@ -300,14 +300,6 @@ def test_bf16_view_matches_jax(clouds, layout, thresh):
         np.testing.assert_array_equal(occ.numpy(), jocc)
 
 
-def test_aux_plane_and_didi_raise():
-    """Non-KITTI presets raise (the aux case this test once held is now
-    ported: test_aux_branch_matches_jax)."""
-    didi = to_port_config(dataclasses.replace(SMALL, dataset_type="didi"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvox.lidar_to_top_batch(torch.zeros(1, 16, 4), didi)
-
-
 @pytest.fixture(scope="module")
 def host_aux_planes(clouds):
     """The JAX package's native (or numpy) host aux planes of the clouds."""
