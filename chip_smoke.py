@@ -2,9 +2,9 @@
 
 Drives ``mv3d_tpu_torch`` — never jax — through its five paths at full
 KITTI width (top view 800x600x27, rgb 375x1242, 65,536 points per frame,
-30,000 anchors), then the didi presets and the model options, with
-random weights from a seed, and holds each of their hand-written kernels
-against its plain PyTorch version:
+30,000 anchors), then the didi presets and the model options, int8
+serving and data parallelism, with random weights from a seed, and holds
+each of their hand-written kernels against its plain PyTorch version:
 
   * serving, hwc: ``MV3D.predict_from_points`` (lidar -> 3D boxes, 30
     proposals per frame) in the standard view layout, through the fused
@@ -141,7 +141,30 @@ Phases:
      the host aux plane (K3 once, finite losses) and a small f32 model on
      the card against the CPU; each configuration's wall ms per request
      and per step and its peak allocated memory printed;
-  9. time each kernel against its plain version and the one PyTorch call
+  9. ``int8``: ``model.quant="int8"`` at full KITTI width
+     (``int8_phase``): every distinct int8 product of the model
+     (``torch._int_mm`` through ``ops.quantized.int_mm``'s padding) equal
+     to the CPU's int32 sums; 3 requests of B=2 in hwc (K1 once each), in
+     s2d2p (K2) and at "pallas-sort" (K4 and K1), with wall ms, peak
+     memory and the share of the same configuration's bf16 detections
+     the int8 model also finds; an int8 artifact exported by
+     ``cli.export --set model.quant int8`` answering a two-frame request
+     over HTTP (K4 and K1 once) bit-equal to in-process ``predict_batch``;
+     a small f32 int8 model on the card against the CPU with the CPU's
+     int8 activations replayed (``Int8Replay``);
+  10. ``parallel``: ``mv3d_tpu_torch.parallel.mesh`` (``parallel_phase``).
+     A one-rank NCCL group on the card: the small f32 model's sharded
+     step (RPN stage, host plane, K3 once) against
+     ``Trainer.fit_iteration`` on the same batch and draws
+     (``compare_steps``), a ``"dcp"`` checkpoint round trip, sharded
+     steps at full width in hwc (2, K3 once each) and s2d2p (1, K2 once)
+     with wall ms and peak memory, sharded inference of 3 requests of
+     B=2 in hwc (K1), at "pallas-sort" (K4 and K1) and int8 (K1), each
+     bit-equal to ``predict_from_points``; then two spawned processes
+     sharing the card over gloo, whose sharded step at 2 x 1 frames is
+     held against the one-rank ``Trainer`` step at B=2 (a second NCCL
+     rank needs a second card);
+  11. time each kernel against its plain version and the one PyTorch call
      that computes the same function, where there is one (CUDA events, the
      wrapper included), at B=1, 2 and 8, beside the kernel's device time
      alone (CUDA events over calls enqueued behind a spin kernel, so they
@@ -150,7 +173,7 @@ Phases:
      torch.profiler trace) and on the host per call
      (``time.perf_counter`` over 200 calls without a synchronize), and
      where the host's time of a K1 call goes at B=1;
-     each in-process serving configuration at
+     each in-process serving configuration (hwc, hwc int8, s2d2p) at
      B=1 and B=8
      (closed loop, three windows of SERVE_WINDOW_S seconds after a warm-up
      window of SERVE_WARMUP_S seconds: per window frames/s and the median
@@ -166,9 +189,10 @@ Phases:
      disk loader alone at 1, 2 and 4 workers and one thread's time per
      frame by stage (velodyne, label, PNG decode, resize, crop and pad,
      aux plane);
-  10. only with ``--profile DIR``: torch.profiler over a few requests of
+  12. only with ``--profile DIR``: torch.profiler over a few requests of
      each serving configuration at B=1 and B=8 and a few training steps
-     (the in-memory hwc step, the disk-fed s2d2p and hwc steps):
+     (the in-memory hwc step, the disk-fed s2d2p and hwc steps, the
+     one-rank sharded hwc step):
      the card's busy time per request or step (union of kernel
      intervals), its idle share against the median wall time, peak
      allocated memory and the ops with the most device time; the
@@ -177,11 +201,14 @@ Phases:
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The line before the last is the kernels' JSON record (each
 kernel's launches summed over the paths counted: K1 serving, hwc
-validation predictions, the evaluation commands and the options phase,
-K2 serving, the s2d2p command, the s2d2p test commands and the didi
-s2d2p requests, K3 the training phase, the hwc command, the rehearsal
-and the options phase's steps, K4 the HTTP requests and the didi
-"pallas-sort" requests); the last is ``{"ok": true,
+validation predictions, the evaluation commands, the options phase and
+the int8 and parallel phases' requests, K2 serving, the s2d2p command,
+the s2d2p test commands, the didi s2d2p requests, the int8 s2d2p
+requests and the sharded s2d2p step, K3 the training phase, the hwc
+command, the rehearsal, the options phase's steps and the one-rank
+sharded steps, K4 the HTTP requests, the didi and int8 "pallas-sort"
+requests and the sharded "pallas-sort" inference); the last is
+``{"ok": true,
 "device": {...}}``. Checkpoints, serving artifacts, logs and the KITTI
 directory go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the
 checkout and are removed. Run from the repository root:
@@ -491,14 +518,66 @@ def profile_calls(call, n: int, label: str, median_s: float, out_dir: str,
     return busy_ms
 
 
+class Int8Replay:
+    """Records the int8 activations and scales of every activation
+    quantization of one run (``record``), then feeds them, in order, to
+    the layers of another run (``replay``, on any device) in place of its
+    own, counting the elements where that run's own quantization of its
+    float input differs (at most one level each). The card's float convs
+    differ from the CPU's in the last bits, which moves an element on a
+    rounding boundary by a level, and unchecked the moves compound with
+    depth (tests/test_torch_quantized.py)."""
+
+    def __init__(self):
+        self.records, self.moved, self.total = [], 0, 0
+
+    def _swap(self, fn):
+        import contextlib
+        from mv3d_tpu_torch.ops import quantized as tq
+
+        @contextlib.contextmanager
+        def ctx():
+            real = tq.quantize_activation
+            tq.quantize_activation = lambda x, group=None: fn(real, x, group)
+            try:
+                yield
+            finally:
+                tq.quantize_activation = real
+        return ctx()
+
+    def record(self):
+        def fn(real, x, group):
+            q, s = real(x, group)
+            self.records.append((q.cpu(), s.cpu()))
+            return q, s
+        return self._swap(fn)
+
+    def replay(self):
+        it = iter(list(self.records))
+
+        def fn(real, x, group):
+            own, _ = real(x, group)
+            q, s = (t.to(x.device) for t in next(it))
+            d = (own.int() - q.int()).abs()
+            if int(d.max()) > 1:
+                raise AssertionError("an int8 activation moved by more "
+                                     "than one level")
+            self.moved += int((d > 0).sum())
+            self.total += d.numel()
+            return q, s
+        return self._swap(fn)
+
+
 def small_reference(rng, dev, serving: bool = False, small=None,
                     label: str = ""):
     """A small f32 model from one seed, run on the card and on the CPU:
     RPN outputs, proposals and detections must agree. With ``serving``
     the model runs in ``mv3d_tpu_torch.serving_config`` (s2d2p pair in
     bf16, split stem, matmul ROI-align; compute stays f32). ``small``
-    replaces the small KITTI config (a didi preset, a model option;
-    ``label`` names it).
+    replaces the small KITTI config (a didi preset, a model option, the
+    int8 model; ``label`` names it). An int8 model's card run takes the
+    CPU run's int8 activations (``Int8Replay``): at most 1e-3 of its own
+    may differ, by one level.
 
     Tolerances: proposal and detection masks exact; RPN scores/deltas atol
     1e-4 and proposal rois atol 1e-3 (cuDNN and the CPU sum convs in
@@ -508,6 +587,7 @@ def small_reference(rng, dev, serving: bool = False, small=None,
     changes that ROI's pooled rgb features: when any corner moved (they
     are counted and printed), probs are held to 1e-3 and boxes3d to 1e-2 m
     (measured on an H100 with 2 moved corners: 2.1e-4 and 2.9e-3 m)."""
+    import contextlib
     import numpy as np
     import torch
     from mv3d_tpu_torch import serving_config
@@ -523,9 +603,12 @@ def small_reference(rng, dev, serving: bool = False, small=None,
     pts = make_cloud(rng, 2, 2048, small, tricky=False)
     rgb = rng.rand(2, *small.rgb_shape).astype(np.float32)
     res = []
+    int8 = Int8Replay() if small.model.quant == "int8" else None
     for d in (torch.device("cpu"), dev):
         net = MV3D(small, device=d, seed=1).model
-        with torch.inference_mode():
+        ctx = (contextlib.nullcontext() if int8 is None
+               else int8.record() if d.type == "cpu" else int8.replay())
+        with torch.inference_mode(), ctx:
             top, occ = lidar_to_top_batch(torch.from_numpy(pts).to(d), small,
                                           return_occ=True)
             rpn = net.top_rpn(top)
@@ -560,7 +643,13 @@ def small_reference(rng, dev, serving: bool = False, small=None,
         f"{int(pm0.sum())} proposals and {int(m0.sum())} live detections; "
         + ", ".join(f"{k} max|diff| {e:.3g} (tol {t:g})"
                     for k, (e, t) in checks.items())
-        + f"; rgb ROI corners moved by a pixel: {moved}")
+        + f"; rgb ROI corners moved by a pixel: {moved}"
+        + ("" if int8 is None else
+           f"; int8 activations (the CPU's replayed): {int8.moved} of "
+           f"{int8.total} off by one level on the card"))
+    if int8 is not None and not int8.moved <= 1e-3 * int8.total:
+        raise AssertionError(f"int8: {int8.moved} of {int8.total} "
+                             f"activations moved")
     for name, (e, tol) in checks.items():
         if not e <= tol:
             raise AssertionError(f"small f32 model: {name} differ by {e} "
@@ -1589,6 +1678,522 @@ def options_phase(rng, dev, work_dir, counters, requests, card):
     return total
 
 
+def int8_products(model, request):
+    """The distinct (M, K, N) int8 products of one request through
+    ``model`` (``ops.quantized.int_mm``'s operands, before padding)."""
+    from mv3d_tpu_torch.ops import quantized as tq
+    shapes, real = set(), tq.int_mm
+
+    def record(a, b_t):
+        shapes.add((a.shape[0], a.shape[1], b_t.shape[0]))
+        return real(a, b_t)
+
+    tq.int_mm = record
+    try:
+        model.predict_from_points(*request, THRESH)
+    finally:
+        tq.int_mm = real
+    return sorted(shapes)
+
+
+def detections_agree(float_dets, int8_dets, tol_m: float = 0.5):
+    """The share of the float model's live detections that the int8 model
+    also finds (a live int8 box whose 8 corners are each within ``tol_m``
+    of the float box's), and the mean |prob difference| over those."""
+    import numpy as np
+    found, total, dprob = 0, 0, []
+    for fd, qd in zip(float_dets, int8_dets):
+        for i in range(fd.mask.shape[0]):
+            fb = fd.boxes3d[i][fd.mask[i]].float().cpu().numpy()
+            fp = fd.probs[i][fd.mask[i]].float().cpu().numpy()
+            qb = qd.boxes3d[i][qd.mask[i]].float().cpu().numpy()
+            qp = qd.probs[i][qd.mask[i]].float().cpu().numpy()
+            total += len(fb)
+            if not len(qb):
+                continue
+            dist = np.linalg.norm(fb[:, None] - qb[None], axis=-1).max(-1)
+            j = dist.argmin(1)
+            hit = dist[np.arange(len(fb)), j] < tol_m
+            found += int(hit.sum())
+            dprob += list(np.abs(fp[hit] - qp[j[hit]]))
+    return (found / max(total, 1), total,
+            float(np.mean(dprob)) if dprob else float("nan"))
+
+
+def int8_phase(rng, dev, work_dir, counters, requests, card):
+    """Phase ``int8``: ``model.quant="int8"`` at full KITTI width, each
+    path driven with the kernels' counts set to 0 just before and read
+    just after. Every distinct int8 product of the model (``torch._int_mm``
+    through ``int_mm``'s padding) equals the CPU's int32 sums at its shape;
+    3 requests of B=2 in hwc (K1), in the s2d2p serving configuration (K2)
+    and at "pallas-sort" (K4 + K1), with wall ms per request and peak
+    memory; the share of the bf16 model's detections (the same
+    configuration and weights) the int8 model also finds; an int8
+    artifact exported by ``cli.export --set model.quant int8`` answers a
+    two-frame request over HTTP (K4 + K1 once) bit-equal to in-process
+    ``predict_batch``; a small f32 int8 model on the card
+    against the CPU (``Int8Replay``). Returns ({kernel: launches}, the hwc
+    int8 model for the timings)."""
+    import io
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch import kitti_config, serving_config
+    from mv3d_tpu_torch.ops import quantized as tq
+    from mv3d_tpu_torch.serving import load_serving
+    from mv3d_tpu_torch.train.trainer import MV3D
+    total = {k: 0 for k in counters}
+    none = {k: 0 for k in counters}
+    cfg = with_pipeline(kitti_config(), use_pallas_fused=True)
+    int8 = with_model(cfg, quant="int8")
+
+    t0 = time.time()
+    hwc = MV3D(int8, device=dev, seed=0)
+    shapes = int8_products(hwc, requests[0])
+    g = torch.Generator().manual_seed(0)
+    for m, k, n in shapes:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        if not torch.equal(tq.int_mm(a.to(dev), b.to(dev)).cpu(),
+                           tq.int_mm(a, b)):
+            raise AssertionError(f"int8 product {m} x {k} x {n}: the card's "
+                                 f"int32 sums differ from the CPU's")
+    log(f"phase int8: {len(shapes)} distinct int8 products (M x K x N) of "
+        f"the KITTI model at B=2, from {min(shapes)} to {max(shapes)}: "
+        f"torch._int_mm on the card (padded to M > 16, K and N multiples "
+        f"of 8) equals the CPU's int32 sums exactly "
+        f"({time.time() - t0:.1f} s)")
+
+    for name, c, want in (
+            ("hwc", int8, {"voxelize_sweep": 3}),
+            ("s2d2p", with_model(serving_config(kitti_config()),
+                                 quant="int8"), {"voxelize_padded": 3}),
+            ("hwc at pallas-sort", with_pipeline(int8,
+                                                 voxel_order="pallas-sort"),
+             {"sort_radix": 3, "voxelize_sweep": 3})):
+        model = hwc if name == "hwc" else MV3D(c, device=dev, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = [], []
+        for fn in counters.values():
+            fn.launches = 0
+        for p, n, r in requests:
+            t1 = time.time()
+            outs.append(model.predict_from_points(p, n, r, THRESH))
+            torch.cuda.synchronize()
+            times.append((time.time() - t1) * 1e3)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        _expect(counts, {**none, **want}, f"int8 {name}")
+        for k in total:
+            total[k] += counts[k]
+        for d in outs:
+            if not (torch.isfinite(d.boxes3d).all()
+                    and torch.isfinite(d.probs).all()):
+                raise AssertionError(f"int8 {name}: non-finite detections")
+        float_model = MV3D(with_model(c, quant="none"), device=dev, seed=0)
+        share, n_float, dprob = detections_agree(
+            [float_model.predict_from_points(*r, THRESH) for r in requests],
+            outs)
+        del float_model
+        log(f"phase int8: {name} (int8): 3 requests of B=2 at full KITTI "
+            f"width, kernel launches {counts}; wall ms per request "
+            + ", ".join(f"{t:.1f}" for t in times)
+            + f" (the first with its first-call set-up); peak allocated "
+            f"{_peak_mib():.0f} MiB; live detections "
+            f"{[int(d.mask.sum()) for d in outs]}; of the bf16 model's "
+            f"{n_float} live detections {share:.3f} found by the int8 model "
+            f"(corners within 0.5 m; mean |prob diff| {dprob:.4f}) [{card}]")
+        if name != "hwc":
+            del model
+
+    art = export_artifact(work_dir, "artifact_int8", 2,
+                          extra=("--set", "model.quant", "int8"))
+    pts = make_cloud(rng, 2, cfg.pipeline.max_points, cfg, tricky=False)
+    rgb = rng.rand(2, *cfg.rgb_shape).astype(np.float32)
+    served = load_serving(art, device=dev)
+    if served.cfg.model.quant != "int8":
+        raise AssertionError("the int8 artifact's config lost quant='int8'")
+    with LocalServer(art) as server:
+        for fn in counters.values():
+            fn.launches = 0
+        with np.load(io.BytesIO(http_post(server.port, npz_body(
+                points_0=pts[0], rgb_0=rgb[0], points_1=pts[1],
+                rgb_1=rgb[1])))) as z:
+            answer = [(z[f"boxes3d_{i}"], z[f"probs_{i}"]) for i in range(2)]
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+    _expect(counts, {**none, "sort_radix": 1, "voxelize_sweep": 1},
+            "int8 artifact over HTTP")
+    for k in total:
+        total[k] += counts[k]
+    want = served.predict_batch([(pts[0], rgb[0]), (pts[1], rgb[1])])
+    for (gb, gp), (wb, wp) in zip(answer, want):
+        if not (np.array_equal(gb, wb) and np.array_equal(gp, wp)):
+            raise AssertionError("int8 artifact: HTTP answer differs from "
+                                 "in-process predict_batch")
+    log(f"phase int8: artifact (B=2, pallas-sort, quant=int8) exported by "
+        f"the CLI and served over HTTP: a two-frame request, kernel "
+        f"launches {counts}, live detections {[len(p) for _, p in answer]},"
+        f" bit-equal to in-process predict_batch")
+    del served
+    small_reference(rng, dev, small=with_model(_small_config(),
+                                               quant="int8"),
+                    label="int8 ")
+    return total, hwc
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_state(tr):
+    """A trainer's subnets' state dicts and Adam's moments, on the CPU,
+    by ``subnet.parameter``."""
+    state = {f"{n}.{k}": v.detach().cpu().clone()
+             for n, m in tr.model.subnets.items()
+             for k, v in m.state_dict().items()}
+    adam = {}
+    for name, module in tr.model.subnets.items():
+        for pname, p in module.named_parameters():
+            st = tr.optimizer.state.get(p)
+            if st:
+                adam[f"{name}.{pname}"] = {k: v.detach().cpu().clone()
+                                           for k, v in st.items()}
+    return state, adam
+
+
+def rgb_corners(targets, cfg):
+    """The rgb ROI corners of a step's fusion targets, on the CPU."""
+    from mv3d_tpu_torch.models.mv3d_net import project_to_rgb_roi
+    return project_to_rgb_roi(targets[1].rois3d.detach(), cfg).cpu()
+
+
+def compare_steps(got, want, lr: float, label: str, corners):
+    """One RPN-stage training step's (losses, state, Adam moments) against
+    a reference's. ``corners`` is (got, want) of the fusion targets' rgb
+    ROI corners, (B, R, 4) each: an rgb ROI corner is an int truncation
+    of a proposal, which the two BatchNorm computations' last bits can
+    move by a pixel, and a moved corner changes that ROI's pooled rgb
+    features (see ``small_train_reference``).
+
+    Tolerances: RPN losses rtol 1e-5, the fusion losses rtol 1e-4 (1e-2
+    where a corner moved); BatchNorm statistics rtol 1e-4 and atol 1e-5 of
+    the tensor's magnitude (at least 1), the fusion head's too where no
+    corner moved, and where some did, atol 1e-5 + 4 f of the magnitude,
+    f the share of the ROIs whose corners moved (each moved ROI shifts a
+    statistic over all ROIs by at most its share of the features' range);
+    Adam's moments within 1e-4 relative L2 per tensor (the RPN's
+    gradients do not reach through the fusion head); parameters within
+    2.1 lr, and where the gradient's sign is sure (|m| > 1e-3 of the
+    tensor's max) within 0.1 lr but for at most 1e-3 of them. Returns a
+    summary."""
+    import torch
+    (gl, gs, ga), (wl, ws, wa) = got, want
+    moved_rois = (corners[0] != corners[1]).any(-1)
+    share = moved_rois.float().mean().item()
+    worst = {"loss": 0.0, "stat": 0.0, "fusion stat": 0.0, "moment": 0.0}
+    for k, w in wl.items():
+        e = abs(gl[k] - w) / max(abs(w), 1e-30)
+        worst["loss"] = max(worst["loss"], e)
+        tol = 1e-5 if k.startswith("top") else (1e-2 if share else 1e-4)
+        if not e <= tol:
+            raise AssertionError(f"{label}: {k} {gl[k]} vs {w}")
+    n_sure = n_apart = 0
+    for k, w in ws.items():
+        g = gs[k]
+        if k.endswith(("running_mean", "running_var")):
+            fusion = k.startswith("fusion.")
+            mag = max(1.0, w.abs().max().item())
+            tol = (1e-5 + (4 * share if fusion else 0.0)) * mag
+            e = ((g - w).abs() - 1e-4 * w.abs()).max().item()
+            key = "fusion stat" if fusion else "stat"
+            worst[key] = max(worst[key], (g - w).abs().max().item() / mag)
+            if not e <= tol:
+                raise AssertionError(f"{label}: statistic {k} differs")
+        elif k in wa:
+            m = wa[k]["exp_avg"]
+            sure = m.abs() > 1e-3 * m.abs().max()
+            if not (g - w).abs().max().item() <= 2.1 * lr:
+                raise AssertionError(f"{label}: parameter {k} differs")
+            n_apart += int((((g - w).abs() > 0.1 * lr + 2.4e-7 * w.abs())
+                            & sure).sum())
+            n_sure += int(sure.sum())
+            for mk in ("exp_avg", "exp_avg_sq"):
+                rel = ((ga[k][mk] - wa[k][mk]).norm()
+                       / wa[k][mk].norm().clamp(min=1e-30)).item()
+                worst["moment"] = max(worst["moment"], rel)
+                if not rel < 1e-4:
+                    raise AssertionError(f"{label}: Adam {mk} of {k} "
+                                         f"differs by {rel}")
+        elif not k.endswith("num_batches_tracked"):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: {k} differs")
+    if not n_apart <= 1e-3 * n_sure:
+        raise AssertionError(f"{label}: {n_apart} of {n_sure} parameters "
+                             f"apart")
+    return (f"losses {' '.join(f'{k} {v:.6g}' for k, v in gl.items())}, "
+            f"rel diff at most {worst['loss']:.2g}; rgb ROI corners moved "
+            f"in {int(moved_rois.sum())} of {moved_rois.numel()} ROIs; "
+            f"statistics max |diff| / magnitude: RPN and trunks "
+            f"{worst['stat']:.3g}, fusion head {worst['fusion stat']:.3g}; "
+            f"Adam moments rel L2 {worst['moment']:.3g} (tol 1e-4), "
+            f"parameters apart by more than 0.1 lr {n_apart} of {n_sure}")
+
+
+PARALLEL_LR = 1e-3
+
+
+def small_train_config():
+    """The small f32 config with the JAX trainer's host aux plane and
+    heights kernel (K3 on every step)."""
+    return with_pipeline(_small_config(), host_aux_channels=True,
+                         use_pallas_heights=True)
+
+
+def gloo_step_worker(rank, world, init, batch_path, out_dir, device):
+    """One process of the two that share the card (``device``) over gloo
+    (the port's groups take NCCL on the card; gloo is joined here
+    directly): the small f32 model's sharded training step at 2 x 1
+    frames; writes its losses, state, Adam moments, rgb ROI corners and
+    K3 launches."""
+    import pickle
+    import torch
+    from mv3d_tpu_torch.ops import voxelize_heights as vh
+    from mv3d_tpu_torch.parallel import mesh as pm
+    from mv3d_tpu_torch.train.trainer import Trainer
+    with open(batch_path, "rb") as f:
+        batch = pickle.load(f)
+    torch.backends.cudnn.allow_tf32 = False      # as main() sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device, 0)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group("gloo", init_method=init,
+                                         rank=rank, world_size=world)
+    mesh = pm.make_mesh(devices=dev)
+    tr = Trainer(None, cfg=small_train_config(), device=dev, seed=1,
+                 lr=PARALLEL_LR, train_targets=("top_view_rpn",),
+                 checkpoint_dir=os.path.join(out_dir, f"ck{rank}"),
+                 log_dir=os.path.join(out_dir, f"log{rank}"))
+    pm.replicate(tr.model, mesh)
+    step = pm.make_sharded_train_step(
+        tr.model, tr.optimizer, tr.train_targets, mesh,
+        schedule=tr.schedule)
+    vh.scatter_max_batched.launches = 0
+    losses = step(pm.shard_batch(batch, mesh),
+                  torch.Generator().manual_seed(2))
+    launches = vh.scatter_max_batched.launches
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump((losses, *train_state(tr), launches,
+                     rgb_corners(step.last_targets, tr.cfg)), f)
+
+
+def parallel_phase(rng, dev, work_dir, counters, requests, card,
+                   profile_dir=None):
+    """Phase ``parallel``: ``mv3d_tpu_torch.parallel.mesh`` on the card.
+
+    A one-rank NCCL group (a second NCCL rank needs a second card): the
+    small f32 model's sharded training step of the RPN stage (hwc with
+    the host plane, K3; every subnet runs in train mode)
+    against ``Trainer.fit_iteration`` on the same batch and draws;
+    sharded training steps at full KITTI width in hwc with the host plane
+    (2, K3 each) and in the s2d2p serving configuration (1, K2) with
+    their wall ms and peak memory (with ``profile_dir``, torch.profiler
+    over 2 more hwc steps); sharded inference of 3 requests of B=2
+    in hwc (K1), at "pallas-sort" (K4 + K1) and int8 (K1), each bit-equal
+    to ``predict_from_points``; a ``"dcp"`` checkpoint saved and restored
+    bit-equal. Then two processes sharing the card over gloo (which takes
+    CUDA tensors for all-reduce and broadcast, all the step needs) run the
+    small model's sharded step at 2 x 1 frames, held against the one-rank
+    ``Trainer`` step at B=2 (``compare_steps``). Returns {kernel:
+    launches} of the one-rank paths."""
+    import multiprocessing
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from mv3d_tpu_torch import kitti_config, serving_config
+    from mv3d_tpu_torch.data.loader import BatchLoader, frames_to_batch
+    from mv3d_tpu_torch.parallel import mesh as pm
+    from mv3d_tpu_torch.train.checkpoint import SubnetCheckpointer
+    from mv3d_tpu_torch.train.trainer import MV3D, Trainer
+    total = {k: 0 for k in counters}
+    none = {k: 0 for k in counters}
+
+    def counted(fn, want, label):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        _expect(counts, {**none, **want}, label)
+        for k in total:
+            total[k] += counts[k]
+        return out, counts
+
+    t0 = time.time()
+    pm.init_process_group(dev, 0, 1, f"tcp://localhost:{free_port()}")
+    try:
+        mesh = pm.make_mesh()
+        small = small_train_config()
+        batch = frames_to_batch(SynthDrive(rng, small, 2, 8000,
+                                           cars=(2, 3)).frames, small)
+        batch = {k: v for k, v in batch.items() if k != "tags"}
+        kw = dict(cfg=small, device=dev, seed=1, lr=PARALLEL_LR,
+                  train_targets=("top_view_rpn",),
+                  checkpoint_dir=os.path.join(work_dir, "ck"),
+                  log_dir=os.path.join(work_dir, "log"))
+        ref = Trainer(None, log_tag="ref", **kw)
+        want = (ref.fit_iteration(batch), *train_state(ref))
+        tr = Trainer(None, log_tag="sharded", **kw)
+        step = pm.make_sharded_train_step(
+            tr.model, tr.optimizer, tr.train_targets, mesh,
+            schedule=tr.schedule)
+        losses, _ = counted(lambda: step(batch, tr.generator),
+                            {"voxelize_heights": 1},
+                            "one-rank sharded step (small)")
+        want_corners = rgb_corners(ref.last_targets, small)
+        summary = compare_steps(
+            (losses, *train_state(tr)), want, PARALLEL_LR,
+            "one-rank NCCL step", (rgb_corners(step.last_targets, small),
+                                   want_corners))
+        log(f"phase parallel: one-rank NCCL group, the small f32 model's "
+            f"sharded step (the RPN stage, hwc with the host plane; "
+            f"voxelize_heights 1) against Trainer.fit_iteration on the same "
+            f"batch and draws: {summary}")
+        ck = SubnetCheckpointer("fusion", os.path.join(work_dir, "dcp"),
+                                backend="dcp")
+        saved = tr.get_variables()["fusion"]
+        ck.save(saved, step=1)
+        loaded = ck.load()
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, f"{prefix}{k}/")
+                else:
+                    yield prefix + k, np.asarray(v)
+
+        got = dict(leaves(loaded))
+        if not (got.keys() == dict(leaves(saved)).keys() and all(
+                np.array_equal(got[k], v) for k, v in leaves(saved))):
+            raise AssertionError("dcp checkpoint round trip differs")
+        log(f"phase parallel: \"dcp\" checkpoint of the fusion subnet "
+            f"({len(got)} arrays) saved and restored over the NCCL group "
+            f"bit-equal")
+        del ref, tr, step
+
+        cfg = kitti_config()
+        train_cfg = with_pipeline(cfg, host_aux_channels=True,
+                                  use_pallas_heights=True)
+        drive = SynthDrive(rng, cfg, 4, 110000)
+        with BatchLoader(drive, train_cfg, batch_size=2, seed=0) as loader:
+            for label, c, n, want_k in (
+                    ("hwc, host plane", train_cfg, 2,
+                     {"voxelize_heights": 1}),
+                    ("s2d2p", with_pipeline(serving_config(cfg),
+                                            host_aux_channels=False), 1,
+                     {"voxelize_padded": 1})):
+                torch.cuda.reset_peak_memory_stats()
+                tr = Trainer(None, cfg=c, device=dev, seed=0,
+                             checkpoint_dir=os.path.join(work_dir, "ck"),
+                             log_dir=os.path.join(work_dir, "log"))
+                step = pm.make_sharded_train_step(
+                    tr.model, tr.optimizer, tr.train_targets, mesh,
+                    schedule=tr.schedule)
+                times = []
+                for _ in range(n):
+                    b = loader.load()
+                    if c.pipeline.view_layout == "s2d2p":
+                        b.pop("top_aux", None)
+                    t1 = time.time()
+                    losses, _ = counted(lambda: step(b, tr.generator),
+                                        want_k, f"sharded step {label}")
+                    times.append((time.time() - t1) * 1e3)
+                    if not np.isfinite(list(losses.values())).all():
+                        raise AssertionError(f"sharded step {label}: "
+                                             f"losses {losses}")
+                if profile_dir and n > 1:
+                    profile_calls(lambda i: step(loader.load(), tr.generator),
+                                  2, "sharded train step B=2 hwc",
+                                  times[-1] / 1e3, profile_dir, card)
+                log(f"phase parallel: one-rank sharded training step at "
+                    f"full KITTI width, B=2, {label}: {n} step"
+                    f"{'s' if n > 1 else ''}, wall ms "
+                    + ", ".join(f"{t:.1f}" for t in times)
+                    + " (the first with its first-call set-up); losses "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+                    + f"; peak allocated {_peak_mib():.0f} MiB [{card}]")
+                del tr, step
+
+        serve_cfg = with_pipeline(cfg, use_pallas_fused=True)
+        for label, c, want_k in (
+                ("hwc", serve_cfg, {"voxelize_sweep": 3}),
+                ("hwc at pallas-sort", with_pipeline(
+                    serve_cfg, voxel_order="pallas-sort"),
+                 {"sort_radix": 3, "voxelize_sweep": 3}),
+                ("hwc int8", with_model(serve_cfg, quant="int8"),
+                 {"voxelize_sweep": 3})):
+            model = MV3D(c, device=dev, seed=0)
+            infer = pm.make_sharded_infer_step(model.model, mesh, THRESH)
+            outs, counts = counted(
+                lambda: [infer(p, r, n) for p, n, r in requests], want_k,
+                f"sharded inference {label}")
+            for (p, n, r), got in zip(requests, outs):
+                ref = model.predict_from_points(p, n, r, THRESH)
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"sharded inference {label} "
+                                         f"differs from predict_from_points")
+            log(f"phase parallel: one-rank sharded inference {label}, 3 "
+                f"requests of B=2: kernel launches {counts}, bit-equal to "
+                f"predict_from_points (live detections "
+                f"{[int(d.mask.sum()) for d in outs]})")
+            del model, infer
+    finally:
+        dist.destroy_process_group()
+
+    # two processes on the one card over gloo
+    t1 = time.time()
+    batch_path = os.path.join(work_dir, "batch.pkl")
+    with open(batch_path, "wb") as f:
+        pickle.dump(batch, f)
+    ctx = multiprocessing.get_context("spawn")
+    init = f"tcp://localhost:{free_port()}"
+    procs = [ctx.Process(target=gloo_step_worker,
+                         args=(r, 2, init, batch_path, work_dir, dev.type))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + 300
+    for p in procs:
+        p.join(max(deadline - time.time(), 1.0))
+    hung = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if hung or [p.exitcode for p in procs] != [0, 0]:
+        raise AssertionError(f"two-process gloo step: hung {hung}, exit "
+                             f"codes {[p.exitcode for p in procs]}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(work_dir, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    if res[0][0] != res[1][0] or not all(
+            torch.equal(v, res[1][1][k]) for k, v in res[0][1].items()):
+        raise AssertionError("two-process gloo step: the ranks differ")
+    summary = compare_steps(res[0][:3], want, PARALLEL_LR,
+                            "two-process gloo step",
+                            (torch.cat([r[4] for r in res]), want_corners))
+    log(f"phase parallel: two processes on the one card over gloo, the "
+        f"small f32 model's sharded step at 2 x 1 frames against the "
+        f"one-process Trainer step at B=2: {summary}; the ranks bit-equal; "
+        f"voxelize_heights {res[0][3]} and {res[1][3]} "
+        f"({time.time() - t1:.1f} s; the phase {time.time() - t0:.1f} s)")
+    return total
+
+
 def step_windows(step, label, card, b=2):
     """TRAIN_WARMUP_STEPS calls of ``step(i)``, then three windows of
     TRAIN_WINDOW_STEPS: ms/step and frames/s per window, then the median
@@ -2337,16 +2942,17 @@ def http_post(port: int, body: bytes, accept=None) -> bytes:
 
 
 def export_artifact(work_dir: str, name: str, batch_size: int,
-                    quantized: bool = False) -> str:
+                    quantized: bool = False, extra=()) -> str:
     """``python -m mv3d_tpu_torch.cli.export --random-init`` of the hwc
     serving configuration at ``voxel_order="pallas-sort"`` (KITTI preset,
-    ``use_pallas_fused``; weights from seed 0) into ``work_dir/name``."""
+    ``use_pallas_fused``; weights from seed 0; ``extra`` arguments, e.g.
+    ``--set model.quant int8``) into ``work_dir/name``."""
     from mv3d_tpu_torch.cli import export as cli_export
     argv = ["--random-init", "--out", os.path.join(work_dir, name),
             "--checkpoint-dir", work_dir, "--batch-size", str(batch_size),
             "--score-threshold", str(THRESH),
             "--set", "pipeline.use_pallas_fused", "True",
-            "--set", "pipeline.voxel_order", "pallas-sort"]
+            "--set", "pipeline.voxel_order", "pallas-sort", *extra]
     return cli_export.main(argv + (["--quantized"] if quantized else []))
 
 
@@ -2830,8 +3436,22 @@ def main(argv=None) -> int:
         rng, dev, os.path.join(work_dirs[1], "options"), counters, requests,
         card)
 
+    started("int8")
+    # -- 9. int8 serving at full width ------------------------------------
+    int8_launches, int8_model = int8_phase(
+        rng, dev, os.path.join(work_dirs[0], "int8"), counters, requests,
+        card)
+
+    started("parallel")
+    # -- 10. data parallelism: one NCCL rank, then two gloo processes -----
+    parallel_dir = os.path.join(work_dirs[1], "parallel")
+    os.makedirs(parallel_dir, exist_ok=True)
+    parallel_launches = parallel_phase(rng, dev, parallel_dir, counters,
+                                       requests, card, opts.profile)
+    new_paths = [option_launches, int8_launches, parallel_launches]
+
     started("timings")
-    # -- 9. timings --------------------------------------------------------
+    # -- 11. timings -------------------------------------------------------
     bounds = {b: kernel_bounds(b, n_pts, n_cells, zn, n_sc)
               for b in (1, 2, 8)}
     for name, (k_ms, p_ms, l_ms) in timed.items():
@@ -2932,9 +3552,10 @@ def main(argv=None) -> int:
             f" us, bound {bounds[b]['sort_merge'] * 1e3:.1f} us [{card}]")
         del f, v, r, rows
     host_breakdown(prep(1, dev), n_cells, zn, card)
-    for label, m in (("hwc", model), ("s2d2p", pad_model)):
+    for label, m in (("hwc", model), ("hwc int8", int8_model),
+                     ("s2d2p", pad_model)):
         serve_timing(m, label, rng, cfg, dev, n_pts, opts.profile, card)
-    del model, pad_model
+    del model, pad_model, int8_model
     http_timing(rng, serve_cfg, dev, n_pts, work_dirs[0], opts.profile,
                 card)
 
@@ -2958,7 +3579,7 @@ def main(argv=None) -> int:
                   replaces="mv3d_tpu/ops/voxelize_pallas.py:220",
                   launches=serve_launches + cmd_launches["voxelize_sweep"]
                   + eval_launches["voxelize_sweep"]
-                  + option_launches["voxelize_sweep"],
+                  + sum(x["voxelize_sweep"] for x in new_paths),
                   max_abs_err=sweep_err),
               "voxelize_padded": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_padded.cu",
@@ -2966,7 +3587,7 @@ def main(argv=None) -> int:
                   launches=padded_launches
                   + cmd_launches["voxelize_padded"]
                   + eval_launches["voxelize_padded"]
-                  + option_launches["voxelize_padded"],
+                  + sum(x["voxelize_padded"] for x in new_paths),
                   max_abs_err=padded_err),
               "voxelize_heights": dict(
                   source="mv3d_tpu_torch/csrc/voxelize_heights.cu",
@@ -2974,17 +3595,19 @@ def main(argv=None) -> int:
                   launches=train_launches
                   + cmd_launches["voxelize_heights"]
                   + eval_launches["voxelize_heights"]
-                  + option_launches["voxelize_heights"],
+                  + sum(x["voxelize_heights"] for x in new_paths),
                   max_abs_err=heights_err),
               "sort_radix": dict(
                   source="mv3d_tpu_torch/csrc/sort_radix.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",
-                  launches=http_launches + option_launches["sort_radix"],
+                  launches=http_launches
+                  + sum(x["sort_radix"] for x in new_paths),
                   max_abs_err=sort_err),
               "sort_merge": dict(
                   source="mv3d_tpu_torch/csrc/sort_merge.cu",
                   replaces="mv3d_tpu/ops/sort_pallas.py:73",
-                  launches=long_launches + option_launches["sort_merge"],
+                  launches=long_launches
+                  + sum(x["sort_merge"] for x in new_paths),
                   max_abs_err=merge_err)}
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [dict(

@@ -172,11 +172,10 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"    # MXU-friendly conv/matmul dtype
     # "int8": serving-time dynamic post-training quantization of the trunk /
     # ROI-tower / fusion-FC matmuls (ops/quantized.py — per-channel int8
-    # weights quantized in-graph from the float checkpoint, per-tensor
-    # dynamic activations, int32 MXU accumulation; v5e+ runs int8 at 2x the
-    # bf16 rate). Stems and prediction heads stay float; training steps
-    # always run the float forward (identical param tree, no checkpoint or
-    # recipe changes).
+    # weights quantized from the float checkpoint at each call, per-tensor
+    # dynamic activations, int32 sums by torch._int_mm). Stems and
+    # prediction heads stay float; training steps always run the float
+    # forward (identical param tree, no checkpoint or recipe changes).
     quant: str = "none"                # "none" | "int8"
     # TPU performance options (capability-preserving deviations from the
     # reference's graph — see models/backbone.py and models/mv3d_net.py):

@@ -27,6 +27,19 @@ convs, -inf for the pools). The transposed conv of ``Upsample2D`` is
 the stride-dilated input with the kernel as given, which
 ``F.conv_transpose2d`` computes with the kernel flipped
 (:class:`ConvTranspose2d`).
+
+``quant="int8"`` (``ConvBnRelu``, ``DenseBnRelu``, the blocks and
+``ResnetTiny``) gives the bias-free convs and dense layers the int8
+forward of :mod:`mv3d_tpu_torch.ops.quantized` in eval mode; train mode
+runs the float program. The stems, in every variant, and the transposed
+convs stay float, as in the JAX modules. The parameters are the float
+layers', so one ``state_dict`` serves both.
+
+A layer's ``group`` (a ``torch.distributed`` process group, set by
+:mod:`mv3d_tpu_torch.parallel.mesh` for a sharded step) makes a batch
+reduction global over the group's ranks: the int8 activation scale of a
+conv or dense layer, and the train-mode statistics of a
+:class:`BatchNorm`.
 """
 
 from __future__ import annotations
@@ -36,6 +49,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.quantized import int8_conv, int8_dense, quantize_weight
 
 
 def same_pads(size: int, kernel: int, stride: int):
@@ -64,14 +79,54 @@ def avg_pool_same(x: torch.Tensor, kernel: int = 2,
     return F.avg_pool2d(x, kernel, stride)
 
 
-class Conv2d(nn.Conv2d):
+class _Quantizable:
+    """``quant="int8"``: the eval-mode forward takes int8 products (set on
+    bias-free layers only); ``group``: the process group over which the
+    int8 activation scale is global.
+
+    The int8 weight and its scales are quantized once and kept while the
+    weight stays the same tensor at the same version: an optimizer step,
+    a load or a move to another device quantizes it again, and so does
+    the first eval call after train mode (``eval()`` keeps them)."""
+    quant = "none"
+    group = None
+    _qweight = None
+
+    def int8(self) -> bool:
+        return self.quant == "int8" and not self.training
+
+    def quantized_weight(self):
+        """``quantize_weight(self.weight)``, cached (see the class)."""
+        w = self.weight
+        if w.is_inference():     # no version counter to watch
+            return quantize_weight(w)
+        kept = self._qweight
+        if (kept is None or kept[0].data_ptr() != w.data_ptr()
+                or kept[1] != w._version):
+            # the detached view keeps the weight's storage, so its address
+            # cannot be reused while the entry stands
+            self._qweight = kept = (w.detach(), w._version,
+                                    quantize_weight(w))
+        return kept[2]
+
+    def train(self, mode: bool = True):
+        if mode:
+            self._qweight = None
+        return super().train(mode)
+
+
+class Conv2d(_Quantizable, nn.Conv2d):
     """``nn.Conv2d`` that computes in ``compute_dtype``: input, weight and
     bias are cast to it at each call (a no-op for weights already held in
-    it)."""
+    it). Its padding is symmetric."""
     compute_dtype = torch.float32
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.int8():
+            return int8_conv(x, self.weight, self.stride[0],
+                             (self.padding[1],) * 2 + (self.padding[0],) * 2,
+                             dt, self.group, self.quantized_weight())
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
@@ -105,13 +160,16 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.padding)
 
 
-class Linear(nn.Linear):
+class Linear(_Quantizable, nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype`` (as
     :class:`Conv2d`)."""
     compute_dtype = torch.float32
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.int8():
+            return int8_dense(x, self.weight, dt, self.group,
+                              self.quantized_weight())
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
@@ -125,12 +183,24 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     updates ``running <- 0.9 * running + 0.1 * batch``, also with the
     biased variance. (``nn.BatchNorm2d`` would update ``running_var`` with
     the unbiased variance, and its ``momentum`` is flax's ``1 - momentum``.)
-    ``num_batches_tracked`` stays 0: flax keeps no such count."""
+    ``num_batches_tracked`` stays 0: flax keeps no such count.
+
+    With a process ``group`` the train-mode statistics are those of the
+    batch of every rank of the group, as under JAX's sharded ``jit``: the
+    sums and the count, then the squared deviations from the global mean
+    are all-reduced by differentiable calls, and the running statistics
+    move with the global mean and biased variance. (Two passes, as the
+    one-process path computes them: the one-pass E[x^2] - E[x]^2 of flax
+    loses digits where a channel's mean is large against its spread,
+    enough to move the fusion head's gradients off the one-process
+    step's. ``nn.SyncBatchNorm`` keeps torch's momentum and the unbiased
+    running variance.)"""
 
     # False while a rematerialized forward is replayed in the backward
     # pass (``MV3DNet`` with ``train.remat``): the statistics are updated
     # once a step, by the first forward, as JAX's pure recompute does
     update_stats = True
+    group = None
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps)
@@ -139,19 +209,44 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if x.dim() < 2:
             raise ValueError(f"expected (N, C, ...) input, got {x.dim()}-D")
 
+    def _global_stats(self, x, dims, shape):
+        """(mean, biased var) over ``dims`` of the group's whole batch, in
+        two passes (two all-reduces): the mean, then the squared
+        deviations from it."""
+        from torch.distributed.nn.functional import all_reduce
+        c = x.shape[1]
+        sums = all_reduce(torch.cat([x.sum(dims),
+                                     x.new_full((1,), x.numel() // c)]),
+                          group=self.group)
+        mean = sums[:c] / sums[c]
+        d = x - mean.reshape(shape)
+        var = all_reduce((d * d).sum(dims), group=self.group) / sums[c]
+        return mean, var
+
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        if not self.update_stats:
-            return y
-        with torch.no_grad():
-            dims = [0] + list(range(2, x.dim()))
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
-            self.running_mean.copy_(self.running_mean * 0.9 + mean * 0.1)
-            self.running_var.copy_(self.running_var * 0.9 + var * 0.1)
+        dims = [0] + list(range(2, x.dim()))
+        if self.group is None:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                             0.0, self.eps)
+            if not self.update_stats:
+                return y
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+        else:
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            mean, var = self._global_stats(x, dims, shape)
+            y = ((x - mean.reshape(shape))
+                 * torch.rsqrt(var.reshape(shape) + self.eps)
+                 * self.weight.reshape(shape) + self.bias.reshape(shape))
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.copy_(self.running_mean * 0.9
+                                        + mean.detach() * 0.1)
+                self.running_var.copy_(self.running_var * 0.9
+                                       + var.detach() * 0.1)
         return y
 
 
@@ -163,17 +258,28 @@ class StridedConv2d(Conv2d):
         k, s = self.kernel_size[0], self.stride[0]
         ph = same_pads(x.shape[2], k, s)
         pw = same_pads(x.shape[3], k, s)
-        return super().forward(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
+        pads = (pw[0], pw[1], ph[0], ph[1])
+        if self.int8():
+            return int8_conv(x, self.weight, s, pads, self.compute_dtype,
+                             self.group, self.quantized_weight())
+        return super().forward(F.pad(x, pads))
 
 
 def conv(in_c: int, out_c: int, kernel: int = 1, stride: int = 1,
-         bias: bool = False) -> Conv2d:
+         bias: bool = False, quant: str = "none") -> Conv2d:
     """A conv with flax's "SAME" padding: symmetric for stride 1 with an
-    odd kernel or any 1x1, from the input's size otherwise."""
+    odd kernel or any 1x1, from the input's size otherwise. ``quant``
+    ("none" or "int8") applies to bias-free convs."""
+    if quant != "none" and (quant != "int8" or bias):
+        raise ValueError(f"quant={quant!r}: expected 'none', or 'int8' on "
+                         f"a bias-free conv")
     if stride != 1 and kernel != 1:
-        return StridedConv2d(in_c, out_c, kernel, stride, bias=bias)
-    return Conv2d(in_c, out_c, kernel, stride, padding=kernel // 2,
-                  bias=bias)
+        layer = StridedConv2d(in_c, out_c, kernel, stride, bias=bias)
+    else:
+        layer = Conv2d(in_c, out_c, kernel, stride, padding=kernel // 2,
+                       bias=bias)
+    layer.quant = quant
+    return layer
 
 
 # the layers that compute in the model's compute dtype
@@ -187,9 +293,9 @@ def bn_relu(bn: nn.Module, x: torch.Tensor, dtype: torch.dtype):
 
 class ConvBnRelu(nn.Module):
     def __init__(self, in_c: int, out_c: int, kernel: int = 3,
-                 stride: int = 1):
+                 stride: int = 1, quant: str = "none"):
         super().__init__()
-        self.Conv_0 = conv(in_c, out_c, kernel, stride)
+        self.Conv_0 = conv(in_c, out_c, kernel, stride, quant=quant)
         self.BatchNorm_0 = BatchNorm(out_c)
 
     def forward(self, x):
@@ -198,9 +304,10 @@ class ConvBnRelu(nn.Module):
 
 
 class DenseBnRelu(nn.Module):
-    def __init__(self, in_f: int, out_f: int):
+    def __init__(self, in_f: int, out_f: int, quant: str = "none"):
         super().__init__()
         self.Dense_0 = Linear(in_f, out_f, bias=False)
+        self.Dense_0.quant = quant
         self.BatchNorm_0 = BatchNorm(out_f)
 
     def forward(self, x):
@@ -247,7 +354,7 @@ class Bottleneck(nn.Module):
     """Pre-activation bottleneck block (He et al. 1603.05027)."""
 
     def __init__(self, in_c: int, filters: int, stride: int = 1,
-                 plain_entry: bool = False):
+                 plain_entry: bool = False, quant: str = "none"):
         super().__init__()
         out_c = filters * 4
         self.plain_entry = plain_entry
@@ -255,12 +362,12 @@ class Bottleneck(nn.Module):
         bns += [filters, filters]
         for i, c in enumerate(bns):
             self.add_module(f"BatchNorm_{i}", BatchNorm(c))
-        self.Conv_0 = conv(in_c, filters, 1, stride)
-        self.Conv_1 = conv(filters, filters, 3)
-        self.Conv_2 = conv(filters, out_c, 1)
+        self.Conv_0 = conv(in_c, filters, 1, stride, quant=quant)
+        self.Conv_1 = conv(filters, filters, 3, quant=quant)
+        self.Conv_2 = conv(filters, out_c, 1, quant=quant)
         self.has_shortcut = in_c != out_c or stride != 1
         if self.has_shortcut:
-            self.Conv_3 = conv(in_c, out_c, 1, stride)
+            self.Conv_3 = conv(in_c, out_c, 1, stride, quant=quant)
 
     def forward(self, x):
         dtype = self.Conv_0.compute_dtype
@@ -280,18 +387,18 @@ class BasicBlock(nn.Module):
     projection shortcut is ``Conv_2``."""
 
     def __init__(self, in_c: int, filters: int, stride: int = 1,
-                 plain_entry: bool = False):
+                 plain_entry: bool = False, quant: str = "none"):
         super().__init__()
         self.plain_entry = plain_entry
         bns = [in_c] if not plain_entry else []
         bns += [filters]
         for i, c in enumerate(bns):
             self.add_module(f"BatchNorm_{i}", BatchNorm(c))
-        self.Conv_0 = conv(in_c, filters, 3, stride)
-        self.Conv_1 = conv(filters, filters, 3)
+        self.Conv_0 = conv(in_c, filters, 3, stride, quant=quant)
+        self.Conv_1 = conv(filters, filters, 3, quant=quant)
         self.has_shortcut = in_c != filters or stride != 1
         if self.has_shortcut:
-            self.Conv_2 = conv(in_c, filters, 1, stride)
+            self.Conv_2 = conv(in_c, filters, 1, stride, quant=quant)
 
     def forward(self, x):
         dtype = self.Conv_0.compute_dtype
@@ -336,13 +443,13 @@ class ResnetTiny(nn.Module):
     before its BatchNorm (``stem_bn``), then ReLU and the max-pool. That
     equals one conv over the concatenated channels of the unpadded view:
     the pad lanes and columns are zeros, as SAME padding is at the true
-    edge."""
+    edge. ``quant`` applies to the blocks' convs; the stem stays float."""
 
     def __init__(self, in_c: int, s2d_factor: int,
                  repetitions: Sequence[int] = (3, 4),
                  base_filters: int = 64, block: str = "bottleneck",
                  input_prefolded: bool = False, split_stem: bool = False,
-                 crop_w: int = 0):
+                 crop_w: int = 0, quant: str = "none"):
         super().__init__()
         if s2d_factor not in (0, 2, 4):
             raise ValueError(f"unsupported s2d_factor {s2d_factor}")
@@ -374,7 +481,8 @@ class ResnetTiny(nn.Module):
                 stride = 2 if (j == 0 and i != 0) else 1
                 name = f"{block_cls.__name__}_{len(self.blocks)}"
                 self.add_module(name, block_cls(
-                    c, filters, stride, plain_entry=(i == 0 and j == 0)))
+                    c, filters, stride, plain_entry=(i == 0 and j == 0),
+                    quant=quant))
                 self.blocks.append(name)
                 c = filters * expansion
             filters *= 2

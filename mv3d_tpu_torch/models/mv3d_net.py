@@ -32,8 +32,16 @@ lane-padded ``"s2d2p"`` (heights, aux) pair (the trunk's split stem);
 ``anchor_mask`` reads the folded occupancy of the folded layouts.
 
 Every dataset preset (``kitti``, ``didi``, ``didi2``) and model option
-of the JAX package is ported but ``quant="int8"`` (ROADMAP A9), which
-raises ``NotImplementedError``.
+of the JAX package is ported. With ``quant="int8"`` the eval-mode forward
+runs the int8 products of :mod:`mv3d_tpu_torch.ops.quantized`; the int8
+layers hold their weights in f32 for inference too, since the JAX package
+quantizes its f32 parameters.
+
+With a process ``group`` set on the model and its layers (by
+:func:`mv3d_tpu_torch.parallel.mesh.global_batch`), ``forward_train`` is
+one rank's share of a data-parallel step: its losses are the rank's
+shares of the global losses, which sum over the group's ranks to the
+global batch's.
 """
 
 from __future__ import annotations
@@ -111,6 +119,9 @@ def _frozen_batch_stats(module: nn.Module):
 class MV3DNet(nn.Module):
     """Owns the four subnet modules and the static anchors."""
 
+    # the data-parallel process group of the losses (see the module doc)
+    group = None
+
     def __init__(self, cfg: Config = _default_cfg):
         super().__init__()
         self.cfg = cfg
@@ -119,10 +130,8 @@ class MV3DNet(nn.Module):
         check_view_layout(cfg)
         if m.roi_align_impl not in ("gather", "matmul"):
             raise ValueError(f"roi_align_impl {m.roi_align_impl!r}")
-        if m.quant != "none":
-            raise NotImplementedError(
-                f"quant={m.quant!r}: int8 serving is not ported "
-                f"(ROADMAP A9)")
+        if m.quant not in ("none", "int8"):
+            raise ValueError(f"quant {m.quant!r}: expected 'none' or 'int8'")
         if m.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {m.compute_dtype!r}")
         s2d_top = 2 if m.stem_space_to_depth else 0
@@ -151,7 +160,7 @@ class MV3DNet(nn.Module):
             self.views.append("rgb")
 
         kw = dict(repetitions=reps, block=m.backbone_block,
-                  upsample=m.upsample_features)
+                  upsample=m.upsample_features, quant=m.quant)
         self.top_rpn = TopRPN(t.channels, len(m.bases), s2d_factor=s2d_top,
                               input_prefolded=folded, split_stem=padded,
                               crop_w=t.yn // 2 if padded else 0, **kw)
@@ -170,7 +179,8 @@ class MV3DNet(nn.Module):
         for mod in self.modules():
             if isinstance(mod, COMPUTE_LAYERS):
                 mod.compute_dtype = dtype
-                mod.to(dtype)
+                if getattr(mod, "quant", "none") == "none":
+                    mod.to(dtype)
 
     def master_weights_f32(self) -> "MV3DNet":
         """Hold the conv and dense weights in f32 (training's master
@@ -336,8 +346,15 @@ class MV3DNet(nn.Module):
         every subnet that runs, trained or frozen (the JAX step returns the
         same updates from its ``aux["updates"]``). Nothing is detached: the
         fusion losses reach the RPN's deltas through the sampled rois.
+
+        With the model's process ``group`` (every rank holding as many
+        frames) the losses are this rank's shares of the group's
+        global-batch losses: the per-frame RPN losses summed over the
+        rank's frames over the global frame count, the fusion losses'
+        masked sums over the global counts.
         """
         cfg = self.cfg
+        group = self.group
         self.train(train)
         top, rgb = batch["top"], batch["rgb"]
         gt3d, gt_labels = batch["gt_boxes3d"], batch["gt_labels"]
@@ -372,7 +389,11 @@ class MV3DNet(nn.Module):
         flat_tg = target_lib.FusionTargets(
             *(x.reshape((b * r,) + x.shape[2:]) for x in fus_tg))
         fuse_cls, fuse_reg = loss_lib.fuse_loss(fuse["scores"],
-                                                fuse["deltas"], flat_tg)
+                                                fuse["deltas"], flat_tg,
+                                                group)
+        if group is not None:
+            frames = b * torch.distributed.get_world_size(group)
+            top_cls, top_reg = top_cls.sum() / frames, top_reg.sum() / frames
         loss_dict = {"top_cls_loss": top_cls.mean(),
                      "top_reg_loss": top_reg.mean(),
                      "fuse_cls_loss": fuse_cls, "fuse_reg_loss": fuse_reg}

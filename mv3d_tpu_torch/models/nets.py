@@ -8,6 +8,11 @@ context towers, handcraft and learnable late fusion. Public inputs and
 outputs keep the JAX layouts: NHWC views and feature maps, (B, A, 2) RPN
 scores in NHWC order (grid-major, base-minor, the anchor order). Logits
 and probabilities are f32.
+
+``quant="int8"`` reaches every bias-free conv and dense layer but those
+the JAX package keeps float: the stems, the first conv of the VGG trunk,
+the transposed convs, the biased heads (``rpn_score``, ``rpn_delta``,
+``score``, ``box_3``, ``fuse_scores``) and ``fuse_deltas``.
 """
 
 from __future__ import annotations
@@ -45,13 +50,15 @@ class TopRPN(nn.Module):
                  repetitions: Sequence[int] = (3, 4),
                  block: str = "bottleneck", upsample: bool = False,
                  input_prefolded: bool = False, split_stem: bool = False,
-                 crop_w: int = 0):
+                 crop_w: int = 0, quant: str = "none"):
         super().__init__()
         self.trunk = ResnetTiny(in_c, s2d_factor, repetitions, block=block,
                                 input_prefolded=input_prefolded,
-                                split_stem=split_stem, crop_w=crop_w)
-        self.reduce = ConvBnRelu(self.trunk.out_channels, 128, 1)
-        self.rpn_conv = ConvBnRelu(128, 128, 3)
+                                split_stem=split_stem, crop_w=crop_w,
+                                quant=quant)
+        self.reduce = ConvBnRelu(self.trunk.out_channels, 128, 1,
+                                 quant=quant)
+        self.rpn_conv = ConvBnRelu(128, 128, 3, quant=quant)
         self.rpn_score = Conv2d(128, 2 * num_bases, 1)
         self.rpn_delta = Conv2d(128, 4 * num_bases, 1)
         self.upsample = upsample
@@ -78,10 +85,11 @@ class VggTrunk(nn.Module):
     """VGG-style stride-8 trunk: conv blocks (32, 32)/pool, (64, 64)/pool,
     (128, 128, 128)/pool, (128, 128, 128), each conv a 3x3 ConvBnRelu and
     each pool a 2x2/2 SAME max-pool (an odd size rounds up). Input NHWC,
-    output NCHW."""
+    output NCHW. With ``quant`` every conv but the first (which sees the
+    raw pixels) is int8."""
     out_channels = 128
 
-    def __init__(self, in_c: int = 3):
+    def __init__(self, in_c: int = 3, quant: str = "none"):
         super().__init__()
         self.layers = []
         c = in_c
@@ -90,7 +98,8 @@ class VggTrunk(nn.Module):
                  (3, 128, False)]):
             for j in range(reps):
                 name = f"block{bi + 1}_conv{j + 1}"
-                self.add_module(name, ConvBnRelu(c, ch, 3))
+                q = "none" if (bi == 0 and j == 0) else quant
+                self.add_module(name, ConvBnRelu(c, ch, 3, quant=q))
                 self.layers.append(name)
                 c = ch
             if pool:
@@ -112,17 +121,18 @@ class RgbFeatureNet(nn.Module):
     def __init__(self, in_c: int = 3, s2d_factor: int = 4,
                  repetitions: Sequence[int] = (3, 4),
                  block: str = "bottleneck", basenet: str = "resnet",
-                 upsample: bool = False):
+                 upsample: bool = False, quant: str = "none"):
         super().__init__()
         if basenet == "vgg":
-            self.trunk = VggTrunk(in_c)
+            self.trunk = VggTrunk(in_c, quant=quant)
         elif basenet == "resnet":
             self.trunk = ResnetTiny(in_c, s2d_factor, repetitions,
-                                    block=block)
+                                    block=block, quant=quant)
         else:
             raise ValueError(f"rgb_basenet={basenet!r}: expected 'resnet' "
                              f"or 'vgg'")
-        self.reduce = ConvBnRelu(self.trunk.out_channels, 128, 1)
+        self.reduce = ConvBnRelu(self.trunk.out_channels, 128, 1,
+                                 quant=quant)
         if upsample:
             self.upsample = Upsample2D(128, self.up_factor)
 
@@ -142,12 +152,14 @@ class _RoiTower(nn.Module):
     """Per-view ROI tower: 3 residual conv blocks with avg-pool /2,
     6x6 -> 3 -> 2 -> 1."""
 
-    def __init__(self, in_c: int = 128):
+    def __init__(self, in_c: int = 128, quant: str = "none"):
         super().__init__()
         c = in_c
         for i, ch in enumerate((128, 256, 512)):
-            self.add_module(f"block{i+1}_conv1", ConvBnRelu(c, ch, 3))
-            self.add_module(f"block{i+1}_conv2", ConvBnRelu(ch, ch, 3))
+            self.add_module(f"block{i+1}_conv1",
+                            ConvBnRelu(c, ch, 3, quant=quant))
+            self.add_module(f"block{i+1}_conv2",
+                            ConvBnRelu(ch, ch, 3, quant=quant))
             c = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -160,14 +172,16 @@ class _RoiTower(nn.Module):
 
 
 class _PredictHead(nn.Module):
-    """Score + 256-256-out corner-delta MLP over a 512-d roi feature."""
+    """Score + 256-256-out corner-delta MLP over a 512-d roi feature;
+    ``score`` and ``box_3`` stay float under ``quant``."""
 
-    def __init__(self, num_class: int, in_f: int = 512, out_dim: int = 24):
+    def __init__(self, num_class: int, in_f: int = 512, out_dim: int = 24,
+                 quant: str = "none"):
         super().__init__()
         self.num_class = num_class
         self.score = Linear(in_f, num_class)
-        self.box_1 = DenseBnRelu(in_f, 256)
-        self.box_2 = DenseBnRelu(256, 256)
+        self.box_1 = DenseBnRelu(in_f, 256, quant=quant)
+        self.box_2 = DenseBnRelu(256, 256, quant=quant)
         self.box_3 = Linear(256, num_class * out_dim)
 
     def forward(self, feat: torch.Tensor):
@@ -202,6 +216,7 @@ class FusionHead(nn.Module):
     def __init__(self, cfg: Config, views: Sequence[str]):
         super().__init__()
         m = cfg.model
+        q = m.quant
         self.num_class = m.num_class
         self.threshold = m.high_score_threshold
         self.siamese = m.use_siamese_fusion
@@ -210,21 +225,22 @@ class FusionHead(nn.Module):
                      else "default")
         self.views = [v for v in ("top", "front", "rgb") if v in views]
         for v in self.views:
-            self.add_module(f"{v}_tower", _RoiTower())
+            self.add_module(f"{v}_tower", _RoiTower(quant=q))
             if self.siamese:
-                self.add_module(f"{v}_ctx_tower", _RoiTower())
+                self.add_module(f"{v}_ctx_tower", _RoiTower(quant=q))
         per_view = 1024 if self.siamese else 512
         n_wo = per_view * sum(v != "rgb" for v in self.views)
-        self.fc_wo_rgb_1 = DenseBnRelu(n_wo, 512)
-        self.fc_wo_rgb_2 = DenseBnRelu(512, 512)
-        self.fc_all_1 = DenseBnRelu(per_view * len(self.views), 512)
-        self.fc_all_2 = DenseBnRelu(512, 512)
+        self.fc_wo_rgb_1 = DenseBnRelu(n_wo, 512, quant=q)
+        self.fc_wo_rgb_2 = DenseBnRelu(512, 512, quant=q)
+        self.fc_all_1 = DenseBnRelu(per_view * len(self.views), 512,
+                                    quant=q)
+        self.fc_all_2 = DenseBnRelu(512, 512, quant=q)
         if self.siamese:
-            self.fc_wo_rgb_3 = DenseBnRelu(512, 512)
-            self.fc_all_3 = DenseBnRelu(512, 512)
-        self.head_with_rgb = _PredictHead(m.num_class)
+            self.fc_wo_rgb_3 = DenseBnRelu(512, 512, quant=q)
+            self.fc_all_3 = DenseBnRelu(512, 512, quant=q)
+        self.head_with_rgb = _PredictHead(m.num_class, quant=q)
         if self.mode != "default":
-            self.head_without_rgb = _PredictHead(m.num_class)
+            self.head_without_rgb = _PredictHead(m.num_class, quant=q)
         if self.mode == "learnable":
             dim = m.num_class * 24
             self.fuse_scores = Linear(2 * m.num_class, m.num_class)

@@ -1,12 +1,13 @@
 """Anchor generation and the empty-anchor filter.
 
 Port of ``mv3d_tpu/ops/anchors.py``. The anchor set is built once in numpy
-(``mv3d_car_bases``, ``make_anchors`` and ``anchor_setup`` are copied: the
-JAX module imports jax, which the machine that runs the port lacks). The
-filter is ``non_empty_anchor_mask_structured``'s ``mode="window"`` on a
-full-resolution occupancy map, and ``_non_empty_anchor_mask_folded``'s
-decision on the folded occupancy of the ``s2d2``/``s2d2p`` views
-(:func:`non_empty_anchor_mask_folded`).
+(``make_bases``, ``mv3d_car_bases``, ``make_anchors`` and ``anchor_setup``
+are copied: the JAX module imports jax, which the machine that runs the
+port lacks). The model's filter is ``non_empty_anchor_mask_structured``'s
+``mode="window"`` on a full-resolution occupancy map, and
+``_non_empty_anchor_mask_folded``'s decision on the folded occupancy of the
+``s2d2``/``s2d2p`` views (:func:`non_empty_anchor_mask_folded`);
+:func:`non_empty_anchor_mask` is the general one over any anchor list.
 
 The window sums use an exclusive integral image in float64. Counts sum
 exactly there, so the mask matches the JAX package bit for bit on the
@@ -23,6 +24,39 @@ import torch
 
 from ..config import Config, cfg as _default_cfg
 from .voxelize import unfold_occ4
+
+
+def _bases_given_ws_hs(ws, hs, cx, cy):
+    ws = ws[:, None]
+    hs = hs[:, None]
+    return np.hstack((cx - 0.5 * (ws - 1), cy - 0.5 * (hs - 1),
+                      cx + 0.5 * (ws - 1), cy + 0.5 * (hs - 1)))
+
+
+def make_bases(base_size=16, ratios=(0.5, 1, 2),
+               scales=(8, 16, 32)) -> np.ndarray:
+    """Ratio x scale anchor bases around a ``base_size`` reference box
+    (reference ``make_bases``, rpn_target_op.py:53-64)."""
+    ratios = np.asarray(ratios, dtype=np.float64)
+    scales = np.asarray(scales, dtype=np.float64)
+    base = np.array([1, 1, base_size, base_size], dtype=np.float64) - 1
+    w = base[2] - base[0] + 1
+    h = base[3] - base[1] + 1
+    cx = base[0] + 0.5 * (w - 1)
+    cy = base[1] + 0.5 * (h - 1)
+    size = w * h
+    ws_r = np.round(np.sqrt(size / ratios))
+    hs_r = np.round(ws_r * ratios)
+    ratio_bases = _bases_given_ws_hs(ws_r, hs_r, cx, cy)
+
+    out = []
+    for rb in ratio_bases:
+        w = rb[2] - rb[0] + 1
+        h = rb[3] - rb[1] + 1
+        cx = rb[0] + 0.5 * (w - 1)
+        cy = rb[1] + 0.5 * (h - 1)
+        out.append(_bases_given_ws_hs(w * scales, h * scales, cx, cy))
+    return np.vstack(out)
 
 
 def mv3d_car_bases() -> np.ndarray:
@@ -72,6 +106,27 @@ def anchor_setup(cfg: Config = _default_cfg) -> Tuple[np.ndarray, np.ndarray]:
                               cfg.top.shape[:2], feat)
     inside = np.ones(len(anchors), dtype=bool)
     return anchors, inside
+
+
+def non_empty_anchor_mask(top_view: torch.Tensor, anchors,
+                          threshold: float = 0.0) -> torch.Tensor:
+    """(..., H, W, C) BEV view x (A, 4) int anchors (x1, y1, x2, y2; x
+    across W) -> (..., A) mask of anchors whose footprint holds mass >
+    ``threshold``: the reference's empty-box kernel sums
+    ``view[y1:y2, x1:x2, :]`` with each corner clamped into [0, dim-1]
+    (an exclusive upper bound), here by an exclusive integral image in
+    float64 and four gathers."""
+    h, w = top_view.shape[-3], top_view.shape[-2]
+    occ = top_view.to(torch.float64).sum(-1)
+    s = torch.nn.functional.pad(occ.cumsum(-2).cumsum(-1), (1, 0, 1, 0))
+    a = torch.as_tensor(anchors).to(top_view.device, torch.int64)
+    x1 = a[:, 0].clamp(0, w - 1)
+    y1 = a[:, 1].clamp(0, h - 1)
+    x2 = torch.maximum(a[:, 2].clamp(0, w - 1), x1)
+    y2 = torch.maximum(a[:, 3].clamp(0, h - 1), y1)
+    rect = (s[..., y2, x2] - s[..., y1, x2] - s[..., y2, x1]
+            + s[..., y1, x1])
+    return rect > threshold
 
 
 def non_empty_anchor_mask_structured(occ: torch.Tensor, bases: np.ndarray,

@@ -3,10 +3,11 @@
 Port of ``mv3d_tpu/ops/roi_align.py``'s two variants: :func:`roi_align`
 (the gather variant, the default) and :func:`roi_align_matmul`
 (``model.roi_align_impl="matmul"``). Both average a fixed grid of
-``samples x samples`` taps per bin. They differ at the edge: the gather
-variant reads the clamped edge cell with the unclamped fractional weight,
-as the JAX gather does; the matmul variant clamps the tap itself to
-[0, dim-1] first, as the JAX einsums do. ROIs are in view coordinates
+``samples x samples`` taps per bin; :func:`roi_pool_max` takes the
+maximum of the gather variant's taps instead. They differ at the edge:
+the gather variant reads the clamped edge cell with the unclamped
+fractional weight, as the JAX gather does; the matmul variant clamps the
+tap itself to [0, dim-1] first, as the JAX einsums do. ROIs are in view coordinates
 (x1, y1, x2, y2), x across the feature width, scaled by ``spatial_scale``.
 Bin sizes divide by a device tensor: CUDA divides by a Python scalar as a
 reciprocal multiply, and a last-bit change in a far-out ROI's bin moves
@@ -45,11 +46,11 @@ def _tap_axes(rois: torch.Tensor, spatial_scale: float,
     return ys, xs
 
 
-def roi_align(features: torch.Tensor, rois: torch.Tensor,
-              spatial_scale: float, pooled: Tuple[int, int] = (6, 6),
-              samples: int = 2) -> torch.Tensor:
-    """(B, H, W, C) features x (B, R, 4) rois -> (B, R, ph, pw, C) f32,
-    the mean of ``samples**2`` bilinear taps per bin."""
+def _bilinear_taps(features: torch.Tensor, rois: torch.Tensor,
+                   spatial_scale: float, pooled: Tuple[int, int],
+                   samples: int) -> torch.Tensor:
+    """(B, H, W, C) x (B, R, 4) -> (B, R, ph, pw, s, s, C) bilinear taps,
+    each reading the clamped edge cells with its unclamped weights."""
     bsz, h, w, c = features.shape
     r = rois.shape[1]
     ph, pw = pooled
@@ -74,11 +75,28 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
         idx = (yi * w + xi).reshape(bsz, -1, 1).expand(-1, -1, c)
         return torch.gather(flat, 1, idx).reshape(yi.shape + (c,))
 
-    vals = (tap(y0i, x0i) * (1 - wy1) * (1 - wx1)
+    return (tap(y0i, x0i) * (1 - wy1) * (1 - wx1)
             + tap(y0i, x1i) * (1 - wy1) * wx1
             + tap(y1i, x0i) * wy1 * (1 - wx1)
             + tap(y1i, x1i) * wy1 * wx1)
-    return vals.mean(dim=(4, 5))
+
+
+def roi_align(features: torch.Tensor, rois: torch.Tensor,
+              spatial_scale: float, pooled: Tuple[int, int] = (6, 6),
+              samples: int = 2) -> torch.Tensor:
+    """(B, H, W, C) features x (B, R, 4) rois -> (B, R, ph, pw, C) f32,
+    the mean of ``samples**2`` bilinear taps per bin."""
+    return _bilinear_taps(features, rois, spatial_scale, pooled,
+                          samples).mean(dim=(4, 5))
+
+
+def roi_pool_max(features: torch.Tensor, rois: torch.Tensor,
+                 spatial_scale: float, pooled: Tuple[int, int] = (6, 6),
+                 samples: int = 4) -> torch.Tensor:
+    """(B, H, W, C) features x (B, R, 4) rois -> (B, R, ph, pw, C), the
+    maximum of ``samples**2`` bilinear taps per bin."""
+    return _bilinear_taps(features, rois, spatial_scale, pooled,
+                          samples).amax(dim=(4, 5))
 
 
 def roi_align_matmul(features: torch.Tensor, rois: torch.Tensor,

@@ -21,8 +21,9 @@ There is no cross-lowering (``platforms=("tpu", "cpu")``):
 The signature is frozen as in JAX: the batch size is fixed, a short batch
 is padded with empty frames (``num_points=0``, rows at -1e9), numpy goes in
 and numpy comes out, and a quantized artifact's host quantizes from
-``meta["quant_bounds"]`` alone. int8 models (``model.quant="int8"``) are
-not ported (ROADMAP A9) and raise ``NotImplementedError``.
+``meta["quant_bounds"]`` alone. An int8 artifact (``model.quant="int8"``)
+is a float artifact whose ``config.json`` says ``quant="int8"``: the
+weights are the float ones, quantized by the serving forward.
 """
 
 from __future__ import annotations
@@ -144,9 +145,6 @@ def export_serving(variables, cfg: Config, out_dir: str, batch_size: int = 1,
     """Write the artifact of ``variables`` (the JAX-layout tree of
     ``MV3D.get_variables()`` or of the JAX package) at ``cfg`` to
     ``out_dir`` and return it."""
-    if cfg.model.quant != "none":
-        raise NotImplementedError(f"quant={cfg.model.quant!r}: int8 serving "
-                                  f"is not ported (ROADMAP A9)")
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,12 +1,22 @@
-"""Per-subnet checkpoints in the JAX package's npz layout.
+"""Per-subnet checkpoints: the JAX package's npz layout, or
+``torch.distributed.checkpoint`` for a process group.
 
-Port of ``mv3d_tpu/train/checkpoint.py`` (npz backend): each subnet's
-flax-style variables tree (``{"params": ..., "batch_stats": ...}``, see
+Port of ``mv3d_tpu/train/checkpoint.py``. Each subnet's flax-style
+variables tree (``{"params": ..., "batch_stats": ...}``, see
 :func:`mv3d_tpu_torch.convert.subnet_variables`) is saved flattened to
-``a/b/c`` names in ``<checkpoint_dir>/<subnet>/<subnet>-<step>.npz``, so
-a checkpoint written by either package loads in the other. Training
-progress (the global step) sits in ``<log_dir>/train_progress/<tag>/
-progress.txt``. The orbax backend is not ported (ROADMAP A6).
+``a/b/c`` names:
+
+  * ``npz`` (default): ``<checkpoint_dir>/<subnet>/<subnet>-<step>.npz``,
+    so a checkpoint written by either package loads in the other;
+  * ``dcp``: a ``torch.distributed.checkpoint`` directory
+    ``<subnet>-<step>.dcp``, saved and loaded collectively by every rank
+    of the default process group (or by one process without a group);
+    written under a temporary name and renamed by rank 0. It takes the
+    place of the JAX package's ``orbax`` backend, whose format the port
+    cannot write: ``backend="orbax"`` raises.
+
+Training progress (the global step) sits in ``<log_dir>/train_progress/
+<tag>/progress.txt``.
 """
 
 from __future__ import annotations
@@ -47,49 +57,105 @@ def _save_npz(path: str, variables) -> None:
     os.replace(tmp, path)
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _save_dcp(path: str, variables) -> None:
+    """Collective save of ``variables`` (f32 host arrays) as a
+    ``torch.distributed.checkpoint`` directory at ``path``."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    tmp = path + ".tmp"
+    rank0 = not _distributed() or dist.get_rank() == 0
+    if rank0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    if _distributed():
+        dist.barrier()
+    dcp.save({k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in _flatten(variables).items()}, checkpoint_id=tmp)
+    if rank0:
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+    if _distributed():
+        dist.barrier()
+
+
+def _load_dcp(path: str):
+    """Collective load of a :func:`_save_dcp` directory into host arrays,
+    shaped by its metadata."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+             for k, m in meta.items()}
+    dcp.load(state, checkpoint_id=path)
+    return _unflatten({k: v.numpy() for k, v in state.items()})
+
+
+_SUFFIX = {"npz": ".npz", "dcp": ".dcp"}
+
+
 class SubnetCheckpointer:
-    """Saves and restores one subnet's variables tree (npz files)."""
+    """Saves and restores one subnet's variables tree (npz files, or
+    ``torch.distributed.checkpoint`` directories with ``backend="dcp"``)."""
 
     def __init__(self, name: str, checkpoint_dir: str,
                  backend: str = "npz"):
-        if backend != "npz":
-            raise NotImplementedError(
-                f"checkpoint backend {backend!r}: only npz is ported "
-                f"(ROADMAP A6)")
+        if backend not in _SUFFIX:
+            raise ValueError(
+                f"checkpoint backend {backend!r}: expected 'npz' or 'dcp' "
+                f"(the sharded backend; the port cannot write orbax's "
+                f"format)")
         self.name = name
+        self.backend = backend
         self.dir = os.path.join(checkpoint_dir, name)
 
     def _path(self, step) -> str:
-        return os.path.join(self.dir, f"{self.name}-{step}.npz")
+        return os.path.join(self.dir,
+                            f"{self.name}-{step}{_SUFFIX[self.backend]}")
+
+    def _save(self, path: str, variables) -> None:
+        if self.backend == "dcp":
+            _save_dcp(path, variables)
+        else:
+            _save_npz(path, variables)
 
     def save(self, variables, step: int = 0) -> None:
-        _save_npz(self._path(step), variables)
+        self._save(self._path(step), variables)
 
     def save_crash(self, variables) -> str:
-        """Forensic checkpoint at ``<name>-crash.npz``, a name
+        """Forensic checkpoint at ``<name>-crash.npz`` (``.dcp``), a name
         :meth:`latest_step` never selects, so a resume starts from the
         last good cadence checkpoint."""
         path = self._path("crash")
-        _save_npz(path, variables)
+        self._save(path, variables)
         return path
 
     def latest_step(self) -> Optional[int]:
         if not os.path.isdir(self.dir):
             return None
+        suffix = _SUFFIX[self.backend]
         steps = []
         for f in os.listdir(self.dir):
-            if f.startswith(self.name + "-") and f.endswith(".npz"):
+            if f.startswith(self.name + "-") and f.endswith(suffix):
                 try:
-                    steps.append(int(f[len(self.name) + 1:-4]))
+                    steps.append(int(f[len(self.name) + 1:-len(suffix)]))
                 except ValueError:
                     pass
         return max(steps) if steps else None
 
     def load(self, step: Optional[int] = None):
-        """The stored variables tree, or None if there is no checkpoint."""
+        """The stored variables tree (host arrays), or None if there is no
+        checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None or not os.path.exists(self._path(step)):
             return None
+        if self.backend == "dcp":
+            return _load_dcp(self._path(step))
         with np.load(self._path(step)) as z:
             return _unflatten({k: z[k] for k in z.files})
 

@@ -13,8 +13,11 @@ Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor``,
     return the batch's fixed-shape :class:`Detections` (boxes3d
     (B, R, 8, 3), probs (B, R), mask (B, R)) as tensors on the model's
     device, where the JAX methods return frame 0's masked numpy arrays.
-  * per-subnet npz checkpoints in the JAX package's layout
-    (``save_weights`` / ``load_weights`` / ``clean_weights``).
+  * per-subnet checkpoints (``save_weights`` / ``load_weights`` /
+    ``clean_weights``): npz in the JAX package's layout, or
+    ``checkpoint_backend="dcp"`` (``torch.distributed.checkpoint``, saved
+    and restored collectively by every rank of a process group, in place
+    of the JAX package's orbax).
   * ``Trainer``: one step = augmentation (off by default) -> voxelization
     (heights on the card with the loader's host aux plane in ``"hwc"``;
     every channel on the card in the folded layouts, which take no host
@@ -54,8 +57,6 @@ Port of ``mv3d_tpu/train/trainer.py``'s ``MV3D``, ``Predictor``,
 Entry points run on the card unless given ``device="cpu"``; without CUDA
 they raise. Weights come from a seeded ``torch.Generator`` init, from a
 JAX variables tree (:mod:`mv3d_tpu_torch.convert`) or from checkpoints.
-
-Not ported (ROADMAP queue A): the orbax backend.
 """
 
 from __future__ import annotations
@@ -157,6 +158,55 @@ def _finite_hook(name: str):
     return hook
 
 
+def optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
+    """The steps ``optimizer`` has taken (optax's ``count``): Adam's
+    ``step`` of its parameters, 0 before the first."""
+    return max((int(st["step"]) for st in optimizer.state.values()
+                if "step" in st), default=0)
+
+
+def train_step(model: MV3DNet, optimizer: torch.optim.Optimizer, params,
+               train_targets, cfg: Config, batch: Dict[str, torch.Tensor],
+               noise: Dict[str, torch.Tensor], schedule,
+               reduce_grads=None, debug_mode: bool = False
+               ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """One optimization step on a batch whose views are made and on its
+    draws: the training forward, the loss mix of ``train_targets``, the
+    backward (under ``detect_anomaly`` with ``debug_mode``), then
+    ``reduce_grads(params)`` if given (a data-parallel gradient sum),
+    clipping by ``train.grad_clip_norm``, and ``optimizer``'s step on
+    ``params`` at the learning rate ``schedule(optimizer_steps(...))``.
+    Leaves the model in eval mode; returns (loss dict, aux)."""
+    anomaly = (torch.autograd.detect_anomaly(check_nan=True)
+               if debug_mode else contextlib.nullcontext())
+    with anomaly:
+        loss_dict, aux = model.forward_train(batch, noise)
+        loss = total_loss(loss_dict, train_targets, cfg)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    if reduce_grads is not None:
+        reduce_grads(params)
+    clip_grads(params, cfg.train.grad_clip_norm)
+    lr = schedule(optimizer_steps(optimizer))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    model.eval()
+    return loss_dict, aux
+
+
+def clip_grads(params, max_norm: float) -> None:
+    """``optax.clip_by_global_norm(max_norm)`` over the gradients of
+    ``params`` (none for ``max_norm <= 0``)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if max_norm <= 0 or not grads:
+        return
+    norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
 def lr_schedule(cfg: Config, lr: float):
     """count -> learning rate: constant, or optax's
     ``warmup_cosine_decay_schedule`` as the JAX Trainer builds it."""
@@ -189,7 +239,8 @@ class MV3D:
                  seed: int = 0,
                  variables: Optional[Mapping[str, Any]] = None,
                  log_tag: str = "default", checkpoint_dir: str = "checkpoint",
-                 log_dir: str = "log", debug_mode: bool = False):
+                 log_dir: str = "log", debug_mode: bool = False,
+                 checkpoint_backend: str = "npz"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tag = log_tag
@@ -208,8 +259,10 @@ class MV3D:
             for name, module in self.model.named_modules():
                 module.register_forward_hook(_finite_hook(name or "MV3DNet"))
         ckpt_dir = os.path.join(checkpoint_dir, log_tag)
-        self.checkpointers = {name: SubnetCheckpointer(name, ckpt_dir)
-                              for name in SUBNET_NAMES}
+        self.checkpointers = {
+            name: SubnetCheckpointer(name, ckpt_dir,
+                                     backend=checkpoint_backend)
+            for name in SUBNET_NAMES}
 
     def log(self, message: str) -> None:
         """Write to stdout and append to ``<log_dir>/log.txt`` (opened at
@@ -366,10 +419,11 @@ class Trainer(MV3D):
                  checkpoint_dir: str = "checkpoint", log_dir: str = "log",
                  seed: int = 0, device=None,
                  variables: Optional[Mapping[str, Any]] = None,
-                 debug_mode: bool = False):
+                 debug_mode: bool = False, checkpoint_backend: str = "npz"):
         super().__init__(cfg, device=device, seed=seed, variables=variables,
                          log_tag=log_tag, checkpoint_dir=checkpoint_dir,
-                         log_dir=log_dir, debug_mode=debug_mode)
+                         log_dir=log_dir, debug_mode=debug_mode,
+                         checkpoint_backend=checkpoint_backend)
         if not train_targets or not set(train_targets) <= set(SUBNET_NAMES):
             raise ValueError(f"train_targets {train_targets!r} must be a "
                              f"non-empty subset of {SUBNET_NAMES}")
@@ -398,7 +452,6 @@ class Trainer(MV3D):
                        for p in self.model.subnets[name].parameters()]
         self.optimizer = torch.optim.Adam(self.params, lr=self.schedule(0),
                                           betas=(0.9, 0.999), eps=1e-8)
-        self.opt_steps = 0
         self.generator = torch.Generator().manual_seed(seed + 1)
 
     def _to_device(self, v) -> torch.Tensor:
@@ -407,15 +460,7 @@ class Trainer(MV3D):
 
     def _clip_grads(self) -> None:
         """optax.clip_by_global_norm over the trained subnets' gradients."""
-        max_norm = self.cfg.train.grad_clip_norm
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if max_norm <= 0 or not grads:
-            return
-        norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum()
-                              for g in grads))
-        scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-        for g in grads:
-            g.mul_(scale)
+        clip_grads(self.params, self.cfg.train.grad_clip_norm)
 
     def fit_iteration(self, batch: Dict[str, np.ndarray],
                       is_validation: bool = False) -> Dict[str, float]:
@@ -430,24 +475,15 @@ class Trainer(MV3D):
         batch = _prepare_views(batch, cfg, "front" in self.model.views)
         noise = draw_noise(cfg, batch["gt_mask"].shape[0], self.generator,
                            self.device)
-        anomaly = (torch.autograd.detect_anomaly(check_nan=True)
-                   if self.debug_mode else contextlib.nullcontext())
         if is_validation:
             with torch.no_grad():
                 loss_dict, aux = self.model.forward_train(batch, noise,
                                                           train=False)
+            self.model.eval()
         else:
-            with anomaly:
-                loss_dict, aux = self.model.forward_train(batch, noise)
-                loss = total_loss(loss_dict, self.train_targets, cfg)
-                self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-            self._clip_grads()
-            for group in self.optimizer.param_groups:
-                group["lr"] = self.schedule(self.opt_steps)
-            self.optimizer.step()
-            self.opt_steps += 1
-        self.model.eval()
+            loss_dict, aux = train_step(
+                self.model, self.optimizer, self.params, self.train_targets,
+                cfg, batch, noise, self.schedule, debug_mode=self.debug_mode)
         self.last_targets = (aux["rpn_targets"], aux["fusion_targets"])
         return {k: float(v.detach()) for k, v in loss_dict.items()}
 

@@ -1,8 +1,9 @@
 """Port parity of the networks: each trunk and the FusionHead against the
 flax modules with the same (converted) weights, in f32
 (``model.compute_dtype="float32"``), within rtol/atol 1e-4; the weight
-converter round-trips every parameter; int8, the one unported option,
-raises (the other options: tests/test_torch_options.py).
+converter round-trips every parameter; a quantization the port does not
+have raises (the other options: tests/test_torch_options.py; int8:
+tests/test_torch_quantized.py).
 
 BatchNorm statistics and affine parameters are drawn at random (flax
 initializes them to the identity), so the converter's BatchNorm mapping is
@@ -161,9 +162,9 @@ def test_bf16_compute_keeps_batchnorm_f32():
     assert out["features"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("field,value", [("quant", "int8")])
+@pytest.mark.parametrize("field,value", [("quant", "int4")])
 def test_unported_model_options_raise(field, value):
     cfg = dataclasses.replace(PCFG, model=dataclasses.replace(
         PCFG.model, **{field: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=value):
         MV3DNet(cfg)

@@ -256,7 +256,8 @@ def test_predictor_loads_every_checkpoint(model, tmp_path):
 
 def test_entry_points_default_to_the_card(artifact, monkeypatch, tmp_path):
     """Without CUDA, loading, serving and exporting without a device raise;
-    int8 models are refused at export."""
+    an int8 artifact exports (it is the float weights and a config) and
+    its loading raises too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_serving(artifact)
@@ -266,8 +267,9 @@ def test_entry_points_default_to_the_card(artifact, monkeypatch, tmp_path):
         cli_export.main(["--random-init", "--out", str(tmp_path / "x")])
     int8 = dataclasses.replace(PCFG, model=dataclasses.replace(
         PCFG.model, quant="int8"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        export_serving({}, int8, str(tmp_path / "i8"))
+    art = export_serving({}, int8, str(tmp_path / "i8"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_serving(art)
 
 
 def _post(port, body, accept=None, timeout=120):

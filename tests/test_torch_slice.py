@@ -160,10 +160,12 @@ from mv3d_tpu_torch.utils import (dashboard, datacheck, logger, metrics, png,
                                   timer, viz)
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
                                 nms, projection, proposal, quantize,
-                                roi_align, sort, sort_bitonic, voxelize,
+                                quantized, roi_align, sort, sort_bitonic,
+                                voxelize,
                                 voxelize_heights, voxelize_padded,
                                 voxelize_sweep)
 from mv3d_tpu_torch.models import backbone, mv3d_net, nets
+from mv3d_tpu_torch.parallel import mesh
 from mv3d_tpu_torch.train import (augment, checkpoint, losses, targets,
                                   trainer)
 torch.set_num_threads(2)        # as the test processes: they share cores
@@ -181,6 +183,11 @@ dets = trainer.MV3D(cfg, device="cpu", seed=0).predict_from_points(
 assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
 serve = mv3d_tpu_torch.serving_config(cfg)
 dets = trainer.MV3D(serve, device="cpu", seed=0).predict_from_points(
+    pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
+assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
+int8 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                          quant="int8"))
+dets = trainer.MV3D(int8, device="cpu", seed=0).predict_from_points(
     pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
 assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
 didi = config.make_config("didi")
@@ -265,7 +272,8 @@ print("ok")
 
 def test_port_never_imports_jax():
     """Every port module, its CLI and ``chip_smoke`` import, predict (the
-    hwc and the s2d2p serving configuration, a tiny didi preset and a
+    hwc and the s2d2p serving configuration, an int8 model, a tiny didi
+    preset and a
     model with every option: the reference graph's upsampling and 7x7
     stem, basic blocks, the VGG rgb trunk, siamese and learnable fusion),
     train, export an artifact
