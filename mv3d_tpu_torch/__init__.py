@@ -12,7 +12,8 @@ decode), ``models/``
 readers, tracklets, host aux planes, the rgb resize, batch loader, the
 offline preprocessor and its precomputed-view dataset), ``utils/`` (PNG
 I/O, debug drawing without PIL, logger, timer, metrics and debug images,
-dashboard, data checks), ``train/`` (targets, losses, augmentation,
+dashboard, data checks, the cost model and profiling helpers),
+``tracking/`` (UKF, multi-object tracker, the motion GRU), ``train/`` (targets, losses, augmentation,
 checkpoints, the ``MV3D``, ``Predictor`` and ``Trainer`` API with its
 debug mode, and the testers), ``eval/`` (the tracklet 3D-IoU scorer,
 KITTI txt export), ``experiments/`` (the staged-training ``Task``),

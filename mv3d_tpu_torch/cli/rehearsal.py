@@ -12,6 +12,11 @@ the two-stage schedule (``experiments/task.Task``: the RPN alone, then
 image + front + fusion) -> per-frame prediction
 (``cli/tracking.pred_and_save``) -> tracklet XML -> 3D-IoU CSVs.
 
+Unlike the JAX command, the prediction XML keeps every detection: the
+JAX command writes it through the tracking saver's ``0 < ty < 8`` gate
+(the reference's ``Tracklet_saver``), which drops the cars right of the
+sensor (ty < 0), so the scorer counted every such gt car as missed.
+
 ``--synthetic-fixture`` first writes a small learnable drive in the KITTI
 object layout (a car-sized point cluster per frame with its
 camera-coordinate label), drawn as the JAX command draws it, and
@@ -214,10 +219,12 @@ def main(argv=None):
             for t in trainers:
                 t.close()
 
-    # 4. predictions over the eval frames -> tracklet XML
+    # 4. predictions over the eval frames -> tracklet XML, every detection
+    # kept (see the module note)
     pred_dir = os.path.join(args.out, "pred")
     pred_path = pred_and_save(eval_ds, trainer, pred_dir,
-                              score_threshold=args.score_threshold, cfg=cfg)
+                              score_threshold=args.score_threshold, cfg=cfg,
+                              gate_ty=False)
 
     # 5. gt tracklet XML + 3D-IoU scoring CSVs
     gt_path = os.path.join(args.out, "gt_tracklets.xml")

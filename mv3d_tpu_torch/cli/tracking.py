@@ -42,9 +42,11 @@ def parse_args(argv=None):
 
 
 def pred_and_save(dataset, predictor, out_dir, score_threshold=None,
-                  cfg=None, log=print):
+                  cfg=None, log=print, gate_ty: bool = True):
     """Run ``predictor`` (any ``MV3D``, a ``Trainer`` too) over a drive and
-    write ``<out_dir>/tracklet_labels_pred.xml``; returns its path."""
+    write ``<out_dir>/tracklet_labels_pred.xml``; returns its path.
+    ``gate_ty``: keep only detections with 0 < ty < 8, as the reference's
+    tracklet saver does (``TrackletSaver``)."""
     from ..data.loader import frames_to_batch
     from ..data.tracklets import TrackletSaver
     from ..ops import boxes3d as box3d_ops
@@ -57,7 +59,7 @@ def pred_and_save(dataset, predictor, out_dir, score_threshold=None,
         # applies to the training and serving loaders
         cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
             cfg.pipeline, stream_quantized=False))
-    saver = TrackletSaver(out_dir)
+    saver = TrackletSaver(out_dir, gate_ty=gate_ty)
     timer = Timer()
     for i in range(len(dataset)):
         frame = dataset.load_frame(i)

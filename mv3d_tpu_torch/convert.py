@@ -1,4 +1,5 @@
-"""Flax variables <-> PyTorch ``state_dict``s for the four MV3D subnets.
+"""Flax variables <-> PyTorch ``state_dict``s for the four MV3D subnets,
+and the tracker's ``MotionGRU`` (:func:`motion_gru_state_dict`).
 
 The JAX package keeps its weights as ``{subnet: {"params": ...,
 "batch_stats": ...}}`` trees of arrays (``jax.tree.map(np.asarray,
@@ -129,3 +130,36 @@ def load_variables(model, variables: Mapping[str, Any]) -> None:
     (strict: every parameter and buffer must be matched)."""
     for name, module in model.subnets.items():
         module.load_state_dict(subnet_state_dict(variables[name]))
+
+
+def motion_gru_state_dict(variables: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """flax ``MotionGRU`` variables (``{"params": {"GRUCell_0": ...,
+    "Dense_0": ...}}``) -> the state_dict of
+    :class:`mv3d_tpu_torch.tracking.seq_model.MotionGRU`.
+
+    torch's GRU stacks its gates in r, z, n order: ``weight_ih_l0`` is
+    flax's ``ir``/``iz``/``in`` kernels transposed, ``weight_hh_l0`` its
+    ``hr``/``hz``/``hn`` kernels, ``bias_ih_l0`` the ``ir``/``iz``/``in``
+    biases, and ``bias_hh_l0`` is ``[0, 0, hn.bias]``: flax's ``hr`` and
+    ``hz`` have no bias, and ``hn``'s is the one inside ``r * (...)``."""
+    p = variables.get("params", variables)
+    cell, dense = p["GRUCell_0"], p["Dense_0"]
+
+    def f32(a):
+        return np.asarray(a, dtype=np.float32)
+
+    hn_bias = f32(cell["hn"]["bias"])
+    zero = np.zeros_like(hn_bias)
+    arrays = {
+        "gru.weight_ih_l0": np.concatenate(
+            [f32(cell[g]["kernel"]).T for g in ("ir", "iz", "in")]),
+        "gru.weight_hh_l0": np.concatenate(
+            [f32(cell[g]["kernel"]).T for g in ("hr", "hz", "hn")]),
+        "gru.bias_ih_l0": np.concatenate(
+            [f32(cell[g]["bias"]) for g in ("ir", "iz", "in")]),
+        "gru.bias_hh_l0": np.concatenate([zero, zero, hn_bias]),
+        "dense.weight": f32(dense["kernel"]).T,
+        "dense.bias": f32(dense["bias"])}
+    return {k: torch.tensor(np.ascontiguousarray(a))
+            for k, a in arrays.items()}

@@ -1,7 +1,7 @@
 """3D box geometry and coordinate transforms on tensors.
 
-Port of ``mv3d_tpu/ops/boxes3d.py``: the top-view, rgb and camera
-projections, the regression encodings, ``box3d_compose`` /
+Port of ``mv3d_tpu/ops/boxes3d.py``: the top-view, rgb, camera and
+drawing front-view projections, the regression encodings, ``box3d_compose`` /
 ``boxes3d_decompose`` on tensors, and the host numpy 3D IoU
 (``boxes3d_score_iou``) that the validation interleave scores with.
 Boxes3d are (..., 8, 3) corner arrays in lidar coordinates; corners 0-3 are
@@ -122,6 +122,24 @@ def box3d_to_rgb_box(boxes3d: torch.Tensor,
     out = torch.stack([u.clamp(0, w - 1), v.clamp(0, h - 1)], dim=-1)
     keep = ((b[..., 0] > 0).sum(-1) > 0) & (in_range.sum(-1) >= 2)
     return torch.where(keep[..., None, None], out, 0).to(torch.int32)
+
+
+def lidar_to_front_coords(points: torch.Tensor, cfg: Config = _default_cfg
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., 3) lidar points -> *drawing* front-view coordinates (c, r),
+    f32: the reference's map (boxes3d.py:29-38) with its legacy ``/2``
+    rescale, distinct from the voxelizer's projection
+    (:func:`mv3d_tpu_torch.ops.voxelize.front_pixels`)."""
+    f = cfg.front
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+
+    def res(v):   # an f32 tensor on the points' device, not a Python float
+        return torch.tensor(v, dtype=torch.float32, device=points.device)
+
+    c = torch.trunc(torch.atan2(y, x) / res(f.angular_res))
+    r = torch.trunc(torch.atan2(z, torch.sqrt(x ** 2 + y ** 2))
+                    / res(f.vertical_res))
+    return (c + f.c_offset) / 2.0, (r + f.r_offset) / 2.0
 
 
 def _rms_scale(boxes3d: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,7 @@ reciprocal, which moves boundary points by one cell.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -408,6 +409,43 @@ def lidar_to_front_batch(points: torch.Tensor, cfg: Config = _default_cfg,
     acc = acc.reshape(bsz, n_pix + 1, 4)[:, :n_pix]
     front = acc[..., :3] / torch.clamp(acc[..., 3:4], min=1.0)
     return front.reshape(bsz, f.width, f.height, 3)
+
+
+def _one_frame(points, num_points):
+    """A single frame's (N, 4) points and optional point count as the
+    batched functions' (1, N, 4) and (1,) tensors."""
+    points = torch.as_tensor(points)[None]
+    if num_points is not None:
+        num_points = torch.as_tensor(num_points, device=points.device
+                                     ).reshape(1)
+    return points, num_points
+
+
+def lidar_to_top(points: torch.Tensor, cfg: Config = _default_cfg,
+                 num_points=None, aux: Optional[torch.Tensor] = None,
+                 return_occ: bool = False):
+    """(N, 4) padded lidar points -> (Xn, Yn, Zn+2) f32 top view of one
+    frame in the standard layout, whatever ``view_layout`` and
+    ``top_view_dtype`` say (as the JAX package's single-frame function);
+    with ``return_occ`` also the (Xn, Yn) occupancy.
+
+    :func:`lidar_to_top_batch` at B=1: the fused sweep (K1) computes every
+    channel, or with ``aux`` (the host's (Xn, Yn, 2) [intensity, density]
+    plane) the heights scatter-max (K3) computes the heights alone."""
+    one = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, view_layout="hwc", top_view_dtype="float32"))
+    points, num_points = _one_frame(points, num_points)
+    out = lidar_to_top_batch(points, one, num_points,
+                             None if aux is None else aux[None], return_occ)
+    return (out[0][0], out[1][0]) if return_occ else out[0]
+
+
+def lidar_to_front(points: torch.Tensor, cfg: Config = _default_cfg,
+                   num_points=None) -> torch.Tensor:
+    """(N, 4) padded lidar points -> (width, height, 3) front view of one
+    frame (:func:`lidar_to_front_batch` at B=1)."""
+    points, num_points = _one_frame(points, num_points)
+    return lidar_to_front_batch(points, cfg, num_points)[0]
 
 
 def pad_points(points, max_points: int) -> Tuple[np.ndarray, int]:

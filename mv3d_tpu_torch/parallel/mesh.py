@@ -58,11 +58,10 @@ def init_process_group(device, rank: int, world_size: int,
     ``tcp://localhost:<port>`` or ``file://<path>``): NCCL for a CUDA
     ``device``, gloo for the CPU. On CUDA the rank's card is
     ``cuda:<rank % device_count>``. Returns the device."""
-    dev = torch.device(device)
+    from ..train.trainer import resolve_device
+
+    dev = resolve_device(device)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' for gloo "
-                               "on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)

@@ -1,2 +1,3 @@
 """Host utilities: PNG I/O, debug drawing, logging, timing, metrics and
-debug images, the dashboard and data checks."""
+debug images, the dashboard, data checks, the cost model (``macs``) and
+profiling helpers (``profiling``)."""

@@ -2,6 +2,10 @@
 BEV aux plane (``mv3d_tpu.native``, its C++ library or numpy fallback),
 ``frames_to_batch`` and the single-worker loader's batch stream.
 
+Where a crop holds more than ``max_points`` points the port keeps an
+evenly spaced subset and the JAX package the first ``max_points``; the
+tests hold the port to JAX's rows at those positions.
+
 Tolerances: crop + pad, intensity and every batch array are exact;
 density within atol 2e-5 (the JAX package's own test tolerance: the C++
 ``logf`` and numpy's ``log`` may differ in the last bits).
@@ -37,12 +41,21 @@ def drive():
 
 @pytest.mark.parametrize("max_points", [8192, 300])
 def test_crop_pad_matches_native(max_points):
+    """Where the crop fits ``max_points`` the native library's rows; where
+    it does not, the native library's crop at ``i * n // max_points``
+    (the port keeps an evenly spaced subset, JAX the first
+    ``max_points``), padded alike."""
     pts = chip_smoke.make_cloud(np.random.RandomState(0), 1, 6000, SMALL,
                                 tricky=True)[0]
     got, n = host_aux.crop_pad(pts, max_points, PSMALL)
-    want, wn = native.crop_pad(pts, max_points, SMALL)
-    assert n == wn and 0 < n
-    np.testing.assert_array_equal(got, want)
+    full, wn = native.crop_pad(pts, len(pts), SMALL)
+    want, _ = native.crop_pad(pts, max_points, SMALL)
+    assert n == min(wn, max_points) and 0 < n
+    keep = (np.arange(n) * wn // n if wn > max_points else np.arange(n))
+    np.testing.assert_array_equal(got[:n], full[keep])
+    np.testing.assert_array_equal(got[n:], want[n:])
+    if wn <= max_points:
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("cfg", [SMALL, CFG], ids=["small", "kitti"])

@@ -156,8 +156,10 @@ from mv3d_tpu_torch.data import (host_aux, kitti, loader, precomputed,
                                  preprocess, tracklets)
 from mv3d_tpu_torch.eval import kitti_export, tracklet_eval
 from mv3d_tpu_torch.experiments import task
-from mv3d_tpu_torch.utils import (dashboard, datacheck, logger, metrics, png,
-                                  timer, viz)
+from mv3d_tpu_torch.utils import (dashboard, datacheck, logger, macs,
+                                  metrics, png, profiling, timer, viz)
+from mv3d_tpu_torch import tracking
+from mv3d_tpu_torch.tracking import seq_model, tracker, ukf
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
                                 nms, projection, proposal, quantize,
                                 quantized, roi_align, sort, sort_bitonic,
@@ -181,6 +183,13 @@ pts = np.stack([rng.uniform(0, 16, 512), rng.uniform(-6, 6, 512),
 dets = trainer.MV3D(cfg, device="cpu", seed=0).predict_from_points(
     pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
 assert dets.boxes3d.shape == (1, cfg.rpn.nms_post_topn, 8, 3)
+padded, n = voxelize.pad_points(pts.astype(np.float32), 2048)
+assert voxelize.lidar_to_top(torch.from_numpy(padded), cfg, n).shape == \
+    cfg.top.shape
+assert host_aux.lidar_to_front(pts, cfg).shape == cfg.front.shape
+assert macs.count_params(trainer.MV3D(cfg, device="cpu").model) > 0
+seq = seq_model.SeqMotionTracker(hidden=4, device="cpu")
+assert np.isfinite(seq.fit(np.cumsum(rng.rand(2, 5, 3), 1), steps=2))
 serve = mv3d_tpu_torch.serving_config(cfg)
 dets = trainer.MV3D(serve, device="cpu", seed=0).predict_from_points(
     pts.astype(np.float32), 512, rng.rand(64, 96, 3).astype(np.float32))
@@ -280,8 +289,9 @@ def test_port_never_imports_jax():
     that answers one HTTP /predict request, run the train command on a
     tiny KITTI directory written to disk, then the test command
     (test_mv3d, export_kitti, probe_rpn), the preprocess command, a
-    rehearsal and the dashboard command, on the CPU, without loading
-    jax, flax, the JAX package or PIL."""
+    rehearsal and the dashboard command, voxelize one frame, count a
+    model's parameters and fit the motion GRU, on the CPU, without
+    loading jax, flax, the JAX package or PIL."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
