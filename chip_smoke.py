@@ -219,8 +219,10 @@ Phases:
   13. ``learning`` (``learning_phase``): ``cli.rehearsal`` on the card as
      tests/test_torch_generalization.py runs it on the CPU (10 fixture
      frames split 8/2, JAX's tiny overrides, two stages of 150
-     iterations at B=2, each re-run while under 10 s): the held-out 3D IoU
-     must clear 0.30 (printed beside the JAX package's recorded 0.52), K3
+     iterations at B=2, each re-run while under 10 s), three times in a
+     fresh process with PyTorch's default algorithms: the first run's
+     held-out 3D IoU must clear 0.30, the other two show the spread
+     between runs (printed beside the JAX package's recorded 0.52); K3
      once per training step, K1 once per prediction; ``tracking``
      (``tracking_phase``): the motion GRU fit and predicted on the card.
 
@@ -257,6 +259,7 @@ import dataclasses
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -2428,31 +2431,33 @@ def kernel_counters():
             "sort_merge": sb.merge_pass_kernel}
 
 
-# the learning gate in a fresh interpreter with PyTorch's deterministic
-# algorithms (cuBLAS needs its workspace setting before CUDA starts): the
-# card's atomics otherwise make each run's training, and so its held-out
-# IoU, differ (PERF.md §6); prints one JSON line
+# the learning gate in a fresh interpreter, as a user runs the command
+# (PyTorch's default algorithms, TF32 off by the entry point); the card's
+# atomics make each run's training, and so its held-out IoU, differ
+# (PERF.md §6): the first run is the gate, the others show the spread;
+# prints one JSON line
+LEARNING_RUNS = 3
 _LEARNING_RUN = r"""
 import json, os, sys, time
 import torch
-torch.use_deterministic_algorithms(True, warn_only=True)
-torch.backends.cudnn.deterministic = True
-torch.backends.cudnn.benchmark = False
 import chip_smoke
 from mv3d_tpu_torch.cli import rehearsal
 work_dir = sys.argv[1]
 counters = chip_smoke.kernel_counters()
-for c in counters.values():
-    c.launches = 0
-t0 = time.time()
-res = rehearsal.main([
-    "--synthetic-fixture", "--fixture-frames", "10", "-o",
-    os.path.join(work_dir, "gen"), "-i", "150", "-b", "2",
-    "--score-threshold", "0.05", "--split-fraction", "0.8", "--config",
-    os.path.join(work_dir, "tiny.json"), "--device", "cuda"])
-torch.cuda.synchronize()
-print(json.dumps({"seconds": time.time() - t0, "result": res,
-                  "launches": {k: c.launches for k, c in counters.items()}}))
+runs = []
+for i in range(chip_smoke.LEARNING_RUNS):
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    res = rehearsal.main([
+        "--synthetic-fixture", "--fixture-frames", "10", "-o",
+        os.path.join(work_dir, f"gen{i}"), "-i", "150", "-b", "2",
+        "--score-threshold", "0.05", "--split-fraction", "0.8", "--config",
+        os.path.join(work_dir, "tiny.json"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    runs.append({"seconds": time.time() - t0, "result": res, "launches": {
+        k: c.launches for k, c in counters.items()}})
+print(json.dumps(runs))
 """
 
 
@@ -2463,45 +2468,67 @@ def learning_phase(work_dir, counters, card):
     the 10-frame synthetic fixture split 8/2, two stages of 150
     iterations at B=2 (each re-run while it finishes in under 10 s, as the
     command does), the 2 held-out frames predicted and scored, in a fresh
-    process with deterministic algorithms (``_LEARNING_RUN``; its kernel
-    counts set to 0 just before the command and read just after). The
-    held-out 3D IoU must clear IOU_FLOOR; one PR point must find the
-    held-out cars; K3 once per training step, K1 once per prediction.
-    Returns the launches."""
+    process with the command's own settings (``_LEARNING_RUN``), run
+    ``LEARNING_RUNS`` times, the kernel counts set to 0 just before each
+    run and read just after. The first run is the gate: its held-out 3D
+    IoU must clear IOU_FLOOR and one PR point must find the held-out
+    cars. The others print the spread between runs and how many fell at
+    or under the floor. In every run K3 launches once per training step
+    and K1 once per prediction, and the CSVs are written. Returns the
+    launches of all runs."""
     os.makedirs(work_dir, exist_ok=True)
     with open(os.path.join(work_dir, "tiny.json"), "w") as f:
         json.dump(TINY_OVERRIDES, f)
-    out = os.path.join(work_dir, "gen")
+    t0 = time.time()
     run = subprocess.run(
         [sys.executable, "-c", _LEARNING_RUN, work_dir], capture_output=True,
-        text=True, timeout=600, cwd=ROOT,
-        env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        text=True, timeout=900, cwd=ROOT)
     if run.returncode:
         raise AssertionError(f"learning gate failed: {run.stderr[-3000:]}")
-    got = json.loads(run.stdout.strip().splitlines()[-1])
-    res, counts, secs = got["result"], got["launches"], got["seconds"]
-    steps = len(_metric_rows(os.path.join(out, "log"), "rehearsal"))
-    _expect(counts, {**{name: 0 for name in counters},
-                     "voxelize_heights": steps, "voxelize_sweep": 2},
-            "learning")
-    with open(os.path.join(out, "splits", "val.txt")) as f:
-        n_val = len(f.read().split())
-    iou = res["iou_per_obj"]["All"]
-    lo = min(res["pr_per_iou"], key=float)
-    pr = res["pr_per_iou"][lo]
+    runs = json.loads(run.stdout.strip().splitlines()[-1])
+    total = {name: 0 for name in counters}
+    ious, faults, missed = [], [], []
+    for i, got in enumerate(runs):
+        out = os.path.join(work_dir, f"gen{i}")
+        res, counts = got["result"], got["launches"]
+        steps = len(_metric_rows(os.path.join(out, "log"), "rehearsal"))
+        _expect(counts, {**{name: 0 for name in counters},
+                         "voxelize_heights": steps, "voxelize_sweep": 2},
+                f"learning run {i}")
+        for name in total:
+            total[name] += counts[name]
+        with open(os.path.join(out, "splits", "val.txt")) as f:
+            n_val = len(f.read().split())
+        iou = res["iou_per_obj"]["All"]
+        lo = min(res["pr_per_iou"], key=float)
+        pr = res["pr_per_iou"][lo]
+        ious.append(iou)
+        log(f"phase learning: run {i} ({'the gate' if i == 0 else 'spread'})"
+            f": {got['seconds']:.1f} s, {steps} training steps; held-out 3D "
+            f"IoU {iou:.4f} (floor {IOU_FLOOR}); PR@{lo} {pr}; launches "
+            f"{counts}")
+        passed = n_val == 2 and iou > IOU_FLOOR and (pr["recall"] > 0
+                                                     and pr["precision"] > 0)
+        if not passed:
+            missed.append(i)
+        if i == 0 and not passed:
+            faults.append(f"held-out IoU {iou} (floor {IOU_FLOOR}), "
+                          f"PR@{lo} {pr}, {n_val} held out")
+        for name in ("iou_per_obj.csv", "pr_per_iou.csv"):
+            if not os.path.exists(os.path.join(out, "eval", name)):
+                faults.append(f"run {i}: no {name}")
     log(f"phase learning: rehearsal --synthetic-fixture 10 frames (8 "
-        f"trained, {n_val} held out), -i 150 -b 2, deterministic "
-        f"algorithms: {secs:.1f} s, {steps} training steps; held-out 3D "
-        f"IoU {iou:.4f} (floor {IOU_FLOOR}; the JAX package's records: "
-        f"{JAX_HELDOUT_IOU}); PR@{lo} {pr}; launches {counts} [{card}]")
-    if n_val != 2 or not iou > IOU_FLOOR or not (pr["recall"] > 0
-                                                 and pr["precision"] > 0):
-        raise AssertionError(f"learning gate: held-out IoU {iou} (floor "
-                             f"{IOU_FLOOR}), PR@{lo} {pr}, {n_val} held out")
-    for name in ("iou_per_obj.csv", "pr_per_iou.csv"):
-        if not os.path.exists(os.path.join(out, "eval", name)):
-            raise AssertionError(f"learning gate: no {name}")
-    return counts
+        f"trained, 2 held out), -i 150 -b 2, PyTorch's default algorithms, "
+        f"{len(runs)} runs in {time.time() - t0:.1f} s: the gate's held-out "
+        f"3D IoU {ious[0]:.4f}; over the runs min {min(ious):.4f}, median "
+        f"{statistics.median(ious):.4f}, max {max(ious):.4f}, "
+        f"{len(missed)} of {len(runs)} runs would fail the gate "
+        f"(floor {IOU_FLOOR}; the JAX package's records "
+        f"give {JAX_HELDOUT_IOU} for its gate, which reads 0.000 on the CPU "
+        f"today, PERF.md §6) [{card}]")
+    if faults:
+        raise AssertionError("learning gate: " + "; ".join(faults))
+    return total
 
 
 def tracking_phase(dev, card):

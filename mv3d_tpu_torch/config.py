@@ -124,11 +124,6 @@ class RpnConfig:
     nms_min_size: float = 8.0      # RPN_NMS_MIN_SIZE
     nms_pre_topn: int = 1000       # RPN_NMS_PRE_TOPN
     nms_post_topn: int = 30        # RPN_NMS_POST_TOPN
-    # what the proposal layer ranks (ops/proposal.py::rpn_scores): the
-    # softmaxed fg probability, as the reference's top_probs; "logits" is
-    # the JAX package's ranking (its callers pass the raw logits, and an
-    # fg logit below -0.5 then counts as a filtered anchor). Port only.
-    proposal_scores: str = "probs"
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,8 @@ only the height channels (:mod:`mv3d_tpu_torch.ops.voxelize_heights`).
 The didi presets drop the capture car's own returns (the center-car
 filter) in both, as the native library does for them. Where a cropped
 cloud holds more than ``max_points``, ``crop_pad`` keeps an evenly spaced
-subset, not the native library's first ``max_points`` (see there).
+subset, not the native library's first ``max_points``
+(:func:`within_budget`).
 """
 
 from __future__ import annotations
@@ -41,24 +42,34 @@ def crop_mask(points: np.ndarray, cfg: Config = _default_cfg) -> np.ndarray:
     return m
 
 
+def within_budget(points: np.ndarray, max_points: int) -> np.ndarray:
+    """The rows of ``points`` that a budget of ``max_points`` keeps: all
+    of them where they fit, else ``max_points`` evenly spaced over them
+    (row ``i * n // max_points`` for ``i < max_points``), in order. The
+    loader (``crop_pad``, after the crop) and the served model
+    (``ServingModel.predict_batch``, on the raw cloud: the model crops on
+    its device) cut to their budgets here.
+
+    The JAX package (and its native library) keeps the first
+    ``max_points``, which drops whatever a file holds last: a scan's last
+    sectors, or all of a cloud written after its ground points (the
+    rehearsal's fixture), so its views lose every return of the dropped
+    region. Within the budget the two agree."""
+    n = len(points)
+    if n <= max_points:
+        return points
+    return points[np.arange(max_points) * n // max_points]
+
+
 def crop_pad(points: np.ndarray, max_points: int,
              cfg: Config = _default_cfg, pad_val: float = -1e9
              ) -> Tuple[np.ndarray, int]:
     """Crop to the grid bounds and pad to (max_points, 4): the surviving
-    points in order, then rows of ``(pad_val, pad_val, pad_val, 0)``.
-    Returns (padded, n_kept).
-
-    Where more than ``max_points`` survive, ``max_points`` of them evenly
-    spaced over the cropped cloud are kept (point ``i * n // max_points``
-    for ``i < max_points``), in order. The JAX package (and its native
-    library) keeps the first ``max_points``, which drops whatever a file
-    holds last: a scan's last sectors, or all of a cloud written after
-    its ground points (the rehearsal's fixture), so its views lose every
-    return of the dropped region. Below ``max_points`` the two agree."""
+    points in order (an evenly spaced subset where more than
+    ``max_points`` survive, :func:`within_budget`), then rows of
+    ``(pad_val, pad_val, pad_val, 0)``. Returns (padded, n_kept)."""
     points = np.ascontiguousarray(points, dtype=np.float32)
-    kept = points[crop_mask(points, cfg)]
-    if len(kept) > max_points:
-        kept = kept[np.arange(max_points) * len(kept) // max_points]
+    kept = within_budget(points[crop_mask(points, cfg)], max_points)
     out = np.full((max_points, 4), pad_val, np.float32)
     out[:, 3] = 0.0
     out[:len(kept)] = kept[:, :4]

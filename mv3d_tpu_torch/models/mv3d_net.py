@@ -60,7 +60,7 @@ from ..ops import boxes3d as box3d_ops
 from ..ops.anchors import (anchor_setup, non_empty_anchor_mask_folded,
                            non_empty_anchor_mask_structured)
 from ..ops.detect import Detections, rcnn_nms
-from ..ops.proposal import Proposals, rpn_proposals, rpn_scores
+from ..ops.proposal import Proposals, rpn_proposals
 from ..ops.roi_align import roi_align, roi_align_matmul
 from ..ops.voxelize import check_dataset, check_view_layout, f32c
 from ..train import losses as loss_lib
@@ -303,9 +303,8 @@ class MV3DNet(nn.Module):
         outs = self.extract_features(top, rgb, front)
         rpn = outs["rpn"]
         inside = self.anchor_mask(top, top_occ)
-        props = rpn_proposals(rpn_scores(rpn["scores"], cfg), rpn["deltas"],
-                              self.anchors, inside, cfg,
-                              nms_thresh=nms_thresh)
+        props = rpn_proposals(rpn["scores"], rpn["deltas"], self.anchors,
+                              inside, cfg, nms_thresh=nms_thresh)
         boxes = props.rois[..., 1:5]
         rois3d = box3d_ops.top_box_to_box3d(boxes, cfg)
         fuse = self.fuse_rois(outs, rois3d, boxes)
@@ -368,8 +367,8 @@ class MV3DNet(nn.Module):
         rpn_tg = target_lib.rpn_target(self.anchors, inside, gt_top,
                                        gt_labels, gt_mask, noise["rpn_pos"],
                                        noise["rpn_neg"], cfg)
-        props = rpn_proposals(rpn_scores(rpn["scores"], cfg), rpn["deltas"],
-                              self.anchors, inside, cfg)
+        props = rpn_proposals(rpn["scores"], rpn["deltas"], self.anchors,
+                              inside, cfg)
         fus_tg = target_lib.fusion_target(props.rois, props.mask, gt_top,
                                           gt3d, gt_labels, gt_mask,
                                           noise["fus_fg"], noise["fus_fp"],

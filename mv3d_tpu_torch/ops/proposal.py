@@ -18,27 +18,6 @@ from . import boxes as box_ops
 from .nms import greedy_nms
 
 
-PROPOSAL_SCORES = ("probs", "logits")
-
-
-def rpn_scores(scores: torch.Tensor, cfg: Config = _default_cfg
-               ) -> torch.Tensor:
-    """The RPN's (B, A, 2) logits as :func:`rpn_proposals` takes them under
-    ``rpn.proposal_scores``: softmaxed (``"probs"``, the reference feeds
-    its proposal layer ``top_probs``), or as they are (``"logits"``, as
-    the JAX package's callers pass them: the layer's -0.5 validity cut,
-    meant for its -1 sentinel, then drops every anchor whose fg logit is
-    below -0.5, and a trained RPN can leave a frame no proposal)."""
-    mode = cfg.rpn.proposal_scores
-    if mode not in PROPOSAL_SCORES:
-        raise ValueError(f"rpn.proposal_scores={mode!r}: expected one of "
-                         f"{PROPOSAL_SCORES}")
-    if mode == "logits":
-        return scores
-    return torch.softmax(scores.reshape(scores.shape[0], -1, 2).to(
-        torch.float32), dim=-1)
-
-
 class Proposals(NamedTuple):
     rois: torch.Tensor     # (B, post_topn, 5): (0, x1, y1, x2, y2)
     scores: torch.Tensor   # (B, post_topn)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..data.host_aux import within_budget
 
 _WEIGHTS_FILE = "weights.npz"
 _META_FILE = "meta.json"
@@ -197,9 +198,11 @@ class ServingModel:
     def predict_batch(self, frames: Sequence[Tuple[np.ndarray, np.ndarray]]
                       ) -> list:
         """Run up to ``meta['batch_size']`` (points (M, 4), rgb (H, W, 3))
-        frames in one execution: each cloud is cut to the point bucket, the
-        batch is padded with empty frames (``num_points=0``). Returns one
-        (boxes3d (K, 8, 3), probs (K,)) pair per frame."""
+        frames in one execution: each cloud is cut to the point bucket as
+        the loader cuts a cropped one (an evenly spaced subset where it
+        holds more, ``data.host_aux.within_budget``), the batch is padded
+        with empty frames (``num_points=0``). Returns one (boxes3d
+        (K, 8, 3), probs (K,)) pair per frame."""
         bsz = self.meta["batch_size"]
         if not 1 <= len(frames) <= bsz:
             raise ValueError(
@@ -211,7 +214,7 @@ class ServingModel:
         num = np.zeros(bsz, np.int32)
         rgbs = np.zeros((bsz, h, w, c), np.float32)
         for i, (p, r) in enumerate(frames):
-            p = np.asarray(p, np.float32)[:n]
+            p = within_budget(np.asarray(p, np.float32), n)
             pts[i, : p.shape[0]] = p
             num[i] = p.shape[0]
             rgbs[i] = np.asarray(r, np.float32)

@@ -77,7 +77,7 @@ from ..models.nets import SUBNET_NAMES, TOP_VIEW_RPN
 from ..ops import boxes3d as box3d_ops
 from ..ops.boxes3d import boxes3d_score_iou
 from ..ops.detect import Detections, rcnn_nms
-from ..ops.proposal import rpn_proposals, rpn_scores
+from ..ops.proposal import rpn_proposals
 from ..ops.quantize import dequantize_points
 from ..ops.voxelize import lidar_to_front_batch, lidar_to_top_batch
 from ..utils.dashboard import render_dashboard
@@ -653,8 +653,8 @@ class PredictorForTest(MV3D):
         model, cfg = self.model, self.cfg
         outs = model.extract_features(top, rgb, front)
         rpn = outs["rpn"]
-        props = rpn_proposals(rpn_scores(rpn["scores"], cfg), rpn["deltas"],
-                              model.anchors, model.anchor_mask(top), cfg)
+        props = rpn_proposals(rpn["scores"], rpn["deltas"], model.anchors,
+                              model.anchor_mask(top), cfg)
         boxes = props.rois[..., 1:5]
         rois3d = box3d_ops.top_box_to_box3d(boxes, cfg)
         fuse = model.fuse_rois(outs, rois3d, boxes)
@@ -793,8 +793,8 @@ class TesterRPN(MV3D):
         included): (Proposals, score map (B, H', W', 2 * bases))."""
         with torch.inference_mode():
             out = self.model.top_rpn(top)
-            props = rpn_proposals(rpn_scores(out["scores"], self.cfg),
-                                  out["deltas"], self.model.anchors,
+            props = rpn_proposals(out["scores"], out["deltas"],
+                                  self.model.anchors,
                                   self.model.anchor_mask(top), self.cfg)
         return props, out["score_map"]
 

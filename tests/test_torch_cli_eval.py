@@ -18,6 +18,7 @@ within one pixel; tracklet XML poses within 1e-3 and the scores within
 """
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -58,7 +59,6 @@ from mv3d_tpu_torch.ops import boxes3d as tb3
 from mv3d_tpu_torch.train import trainer as ttrainer
 from mv3d_tpu_torch.utils import datacheck
 
-from test_torch_config import as_jax
 from test_torch_models import randomize_bn
 
 torch.set_num_threads(2)
@@ -76,14 +76,8 @@ THRESH = "0.05"
 
 
 def _configs(path):
-    """The JAX and the port configuration of the same flags, the port's
-    with JAX's proposal ranking (``as_jax``)."""
     args = argparse.Namespace(dataset="kitti", config=path, set_kv=[])
-    return jcommon.resolve_config(args), as_jax(common.resolve_config(args))
-
-
-# the port's commands rank proposals as the JAX package does
-AS_JAX = ["--set", "rpn.proposal_scores", "logits"]
+    return jcommon.resolve_config(args), common.resolve_config(args)
 
 
 @pytest.fixture(scope="module")
@@ -271,7 +265,7 @@ def test_test_mv3d_and_export_kitti_match_jax(data, tmp_path, capsys):
     for name, mod, cmds, extra in (
             ("jax", jtest_cli, ("test_mv3d",), []),
             ("port", test_cli, ("test_mv3d", "export_kitti"),
-             ["--device", "cpu", *AS_JAX])):
+             ["--device", "cpu"])):
         for cmd in cmds:
             out[name, cmd] = str(tmp_path / f"{name}_{cmd}")
             mod.main([cmd, *_cli(data, "--out-dir", out[name, cmd],
@@ -318,9 +312,8 @@ def test_remaining_subcommands_run_and_write_their_files(data, tmp_path,
                                                          capsys):
     """test_rpn, test_single_mv3d, test_3dop, test_rpn_target, test_front
     and probe_rpn (object and raw drives) on the CPU write what the JAX
-    command writes; test_rpn's proposals are the ``TesterRPN``'s (both at
-    the fixture's ``pcfg``)."""
-    cpu = ["--limit", "2", "--device", "cpu", *AS_JAX]
+    command writes; test_rpn's proposals are the ``TesterRPN``'s."""
+    cpu = ["--limit", "2", "--device", "cpu"]
     out = {c: str(tmp_path / c) for c in test_cli.COMMANDS}
     test_cli.main(["test_rpn", *_cli(data, "--out-dir", out["test_rpn"]),
                    *cpu])
@@ -409,30 +402,25 @@ def _raw_drive(base, n):
     return str(base)
 
 
-def test_pred_and_save_and_tracking_main_match_jax(data, tmp_path, capsys,
-                                                  monkeypatch):
+def test_pred_and_save_and_tracking_main_match_jax(data, tmp_path, capsys):
     """``pred_and_save`` over a raw drive with the same weights: the port's
     tracklet XML holds JAX's detections (poses and sizes within 1e-3), and
     the scores of both against the drive's gt agree within 1e-3; the
     tracking command writes the XML and the CSVs.
 
-    The drive's frames hold more points in the grid than ``max_points``:
-    JAX's loader is given the port's evenly spaced subset
-    (``data/host_aux.crop_pad``) in place of its first ``max_points``, so
-    both detect on the same points."""
-    from mv3d_tpu import native
-    from mv3d_tpu_torch.data import host_aux
-    monkeypatch.setattr(native, "crop_pad", lambda pts, n, cfg: (
-        host_aux.crop_pad(pts, n, data["pcfg"])))
+    Both run at a ``max_points`` above a frame's 3,000 points, so neither
+    loader drops a point (over the budget the port keeps an evenly spaced
+    subset and the JAX package the first ``max_points``)."""
+    jcfg, pcfg = (dataclasses.replace(c, pipeline=dataclasses.replace(
+        c.pipeline, max_points=4096)) for c in (data["jcfg"], data["pcfg"]))
     raw = _raw_drive(tmp_path / "raw", 3)
-    jds = jkitti.KittiRawDataset(raw, "2011_09_26", "0005", data["jcfg"])
-    pds = kitti.KittiRawDataset(raw, "2011_09_26", "0005", data["pcfg"])
-    jm = jtrainer.MV3D(data["jcfg"], log_tag="j",
+    jds = jkitti.KittiRawDataset(raw, "2011_09_26", "0005", jcfg)
+    pds = kitti.KittiRawDataset(raw, "2011_09_26", "0005", pcfg)
+    jm = jtrainer.MV3D(jcfg, log_tag="j",
                        checkpoint_dir=str(tmp_path / "c"),
                        log_dir=str(tmp_path / "l"))
     jm.variables = data["variables"]
-    pm = ttrainer.MV3D(data["pcfg"], device="cpu",
-                       variables=data["variables"])
+    pm = ttrainer.MV3D(pcfg, device="cpu", variables=data["variables"])
     jpath = jtracking.pred_and_save(jds, jm, str(tmp_path / "jp"),
                                     score_threshold=0.05, log=print)
     ppath = tracking.pred_and_save(pds, pm, str(tmp_path / "pp"),

@@ -1,12 +1,7 @@
 """The port's config copy against the JAX package's config, and the
 converter the parity tests use: a JAX ``Config`` becomes the port's
 ``Config`` field by field, so both packages run from one set of
-overrides. Comparisons are exact (frozen dataclass equality).
-
-The port has one field the JAX package lacks, ``rpn.proposal_scores``:
-its default ranks proposals by the softmaxed fg probability, and the
-converter sets ``"logits"``, the JAX package's ranking, so that the
-parity tests hold the port to JAX's proposals."""
+overrides. Comparisons are exact (frozen dataclass equality)."""
 
 import dataclasses
 
@@ -19,28 +14,14 @@ from mv3d_tpu_torch import config as tconfig
 from __graft_entry__ import _tiny_config
 
 
-# the port's fields that the JAX package does not have, and the values
-# that reproduce the JAX package
-PORT_ONLY = {"RpnConfig": {"proposal_scores": "logits"}}
-
-
 def to_port_config(cfg):
     """A JAX ``Config`` (or any of its nested dataclasses) as the port's
-    dataclass of the same name, converted field by field; the port-only
-    fields take the JAX package's behaviour (``PORT_ONLY``)."""
+    dataclass of the same name, converted field by field."""
     cls = getattr(tconfig, type(cfg).__name__)
     return cls(**{f.name: (to_port_config(v)
                            if dataclasses.is_dataclass(v) else v)
                   for f in dataclasses.fields(cfg)
-                  for v in [getattr(cfg, f.name)]},
-               **PORT_ONLY.get(cls.__name__, {}))
-
-
-def as_jax(port_cfg):
-    """A port ``Config`` with its port-only fields at the JAX package's
-    values."""
-    return dataclasses.replace(port_cfg, rpn=dataclasses.replace(
-        port_cfg.rpn, **PORT_ONLY["RpnConfig"]))
+                  for v in [getattr(cfg, f.name)]})
 
 
 _CLASSES = ["TopGrid", "FrontGrid", "RpnConfig", "RcnnConfig",
@@ -51,18 +32,15 @@ _CLASSES = ["TopGrid", "FrontGrid", "RpnConfig", "RcnnConfig",
 def test_dataclass_fields_and_defaults_match(name):
     jf = dataclasses.fields(getattr(jconfig, name))
     tf = dataclasses.fields(getattr(tconfig, name))
-    extra = PORT_ONLY.get(name, {})
-    assert [f.name for f in jf] + list(extra) == [f.name for f in tf]
-    want = dataclasses.replace(getattr(tconfig, name)(), **extra)
-    if name == "Config":
-        want = as_jax(want)
-    assert to_port_config(getattr(jconfig, name)()) == want
+    assert [f.name for f in jf] == [f.name for f in tf]
+    assert to_port_config(getattr(jconfig, name)()) \
+        == getattr(tconfig, name)()
 
 
 @pytest.mark.parametrize("preset", ["kitti", "didi", "didi2"])
 def test_presets_convert_to_the_port_presets(preset):
     jc, tc = jconfig.make_config(preset), tconfig.make_config(preset)
-    assert to_port_config(jc) == as_jax(tc)
+    assert to_port_config(jc) == tc
     assert (tc.top_shape, tc.front_shape, tc.rgb_shape, tc.num_anchors) \
         == (jc.top_shape, jc.front_shape, jc.rgb_shape, jc.num_anchors)
     np.testing.assert_array_equal(tc.matrix_mt, jc.matrix_mt)
@@ -74,5 +52,5 @@ def test_overrides_build_the_same_config():
           "model.compute_dtype", "float32", "pipeline.max_points", "4096"]
     jc = jconfig.config_from_list(jconfig.kitti_config(), kv)
     tc = tconfig.config_from_list(tconfig.kitti_config(), kv)
-    assert to_port_config(jc) == as_jax(tc)
+    assert to_port_config(jc) == tc
     assert to_port_config(_tiny_config()).top_shape == (80, 60, 27)

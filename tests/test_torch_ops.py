@@ -2,10 +2,7 @@
 RPN proposals, ROI-align, rcnn_nms and the box geometry they use.
 
 Inputs are made with numpy from a seed and go through both packages; the
-training targets get the JAX function's own uniform draws. The proposal
-layer's inputs under both ``rpn.proposal_scores`` values (the port's
-softmaxed default, and the JAX package's raw logits) are held to JAX's
-``rpn_proposals`` given the same.
+training targets get the JAX function's own uniform draws.
 Tolerances: anchor masks and NMS/proposal indices and masks are exact;
 target masks and labels are exact and their regression targets within
 atol 1e-5; box encodings and IoUs within atol 1e-6;
@@ -13,8 +10,6 @@ boxes within atol 1e-4 (exp/log differ in the last ulp between XLA and
 torch); ROI-align within atol 1e-5; image-pixel projections are int32
 truncations, compared exactly with the count of moved pixels stated.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -131,44 +126,6 @@ def test_rpn_proposals_match_jax(rpn_inputs):
                                    rtol=0, atol=1e-4)
         np.testing.assert_array_equal(got.scores[i].numpy(),
                                       np.asarray(want.scores))
-
-
-def test_rpn_scores_rank_probabilities_by_default(rpn_inputs):
-    """``rpn.proposal_scores``: the port's default feeds the proposal layer
-    the softmaxed scores (JAX's ``rpn_proposals`` given probabilities, as
-    the reference feeds its ``top_probs``); ``"logits"`` passes the raw
-    logits, as the JAX package's callers do, where every anchor whose fg
-    logit is below -0.5 counts as filtered."""
-    from mv3d_tpu_torch import config as tconfig
-    anchors, _, deltas, inside = rpn_inputs
-    logits = np.random.RandomState(6).randn(2, len(anchors), 2).astype(
-        np.float32)
-    logits[..., 1] -= 3.0            # almost every fg logit below -0.5
-    assert tconfig.RpnConfig().proposal_scores == "probs"
-    probs_cfg = dataclasses.replace(PCFG, rpn=dataclasses.replace(
-        PCFG.rpn, proposal_scores="probs"))
-    n_live = {}
-    for cfg, jscores in ((probs_cfg, np.asarray(jax.nn.softmax(logits, -1))),
-                         (PCFG, logits)):
-        got = tproposal.rpn_proposals(
-            tproposal.rpn_scores(_t(logits), cfg), _t(deltas), _t(anchors),
-            _t(inside), cfg)
-        for i in range(2):
-            want = jproposal.rpn_proposals(jscores[i], deltas[i], anchors,
-                                           inside[i], CFG)
-            np.testing.assert_array_equal(got.mask[i].numpy(),
-                                          np.asarray(want.mask))
-            np.testing.assert_allclose(got.rois[i].numpy(),
-                                       np.asarray(want.rois), rtol=0,
-                                       atol=1e-4)
-            np.testing.assert_allclose(got.scores[i].numpy(),
-                                       np.asarray(want.scores), rtol=1e-6,
-                                       atol=0)
-        n_live[cfg.rpn.proposal_scores] = int(got.mask.sum())
-    assert n_live["logits"] < n_live["probs"]
-    with pytest.raises(ValueError, match="proposal_scores"):
-        tproposal.rpn_scores(_t(logits), dataclasses.replace(
-            PCFG, rpn=dataclasses.replace(PCFG.rpn, proposal_scores="x")))
 
 
 def test_roi_align_matches_jax(rng):

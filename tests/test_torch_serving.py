@@ -31,6 +31,7 @@ from mv3d_tpu.serving.export import _flatten as jax_flatten
 from mv3d_tpu_torch import kitti_config, serving_config
 from mv3d_tpu_torch.cli import export as cli_export
 from mv3d_tpu_torch.cli.serve import make_server
+from mv3d_tpu_torch.data import host_aux
 from mv3d_tpu_torch.ops import quantize as tquant
 from mv3d_tpu_torch.serving import (ServingModel, build_serving_fn,
                                     export_serving, load_serving)
@@ -150,6 +151,24 @@ def test_predict_pads_and_checks_the_batch(artifact):
     np.testing.assert_array_equal(both[0][1], p0)
     with pytest.raises(ValueError, match="batch"):
         served.predict_batch([(pts[0], rgb[0])] * 3)
+
+
+def test_predict_cuts_a_cloud_over_the_bucket_as_the_loader_does(artifact):
+    """A cloud of 1.5x the point bucket is cut as the loader cuts a
+    cropped one (``data.host_aux.within_budget``, an evenly spaced subset
+    whose rows span the whole cloud): its detections are those of that
+    subset, bit for bit."""
+    served = load_serving(artifact, device="cpu")
+    pts, _, rgb = _inputs(b=2, seed=4)
+    n = CFG.pipeline.max_points
+    big = np.concatenate([pts[0], pts[1][: n // 2]])
+    keep = np.arange(n) * len(big) // n
+    np.testing.assert_array_equal(host_aux.within_budget(big, n), big[keep])
+    assert keep[-1] >= n
+    got, want = served.predict(big, rgb[0]), served.predict(big[keep], rgb[0])
+    assert len(want[0]) > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 def test_quantize_points_match_jax():
