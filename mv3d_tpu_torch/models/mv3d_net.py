@@ -65,6 +65,7 @@ from ..ops.roi_align import roi_align, roi_align_matmul
 from ..ops.voxelize import check_dataset, check_view_layout, f32c
 from ..train import losses as loss_lib
 from ..train import targets as target_lib
+from ..utils.profiling import stage
 from .backbone import (COMPUTE_LAYERS, BatchNorm, Conv2d, Linear,
                        Upsample2D)
 from .nets import (FRONT_FEATURE, FUSION, IMAGE_FEATURE, SUBNET_NAMES,
@@ -256,12 +257,16 @@ class MV3DNet(nn.Module):
 
     def extract_features(self, top, rgb, front) -> Dict[str, torch.Tensor]:
         """Run the trunks of the configured views (in the modules' mode:
-        train mode uses and updates batch statistics)."""
-        out = {"rpn": self._trunk(self.top_rpn, top)}
+        train mode uses and updates batch statistics), each in its stage
+        (``utils.profiling.stage``)."""
+        with stage("top_trunk"):
+            out = {"rpn": self._trunk(self.top_rpn, top)}
         if "rgb" in self.views:
-            out["rgb_features"] = self._trunk(self.rgb_net, rgb)
+            with stage("rgb_trunk"):
+                out["rgb_features"] = self._trunk(self.rgb_net, rgb)
         if "front" in self.views:
-            out["front_features"] = self._trunk(self.front_net, front)
+            with stage("front_trunk"):
+                out["front_features"] = self._trunk(self.front_net, front)
         return out
 
     def pool_rois(self, feats: Dict[str, torch.Tensor], rois3d: torch.Tensor,
@@ -298,18 +303,24 @@ class MV3DNet(nn.Module):
                           nms_thresh: Optional[float] = None,
                           top_occ: Optional[torch.Tensor] = None
                           ) -> Tuple[Detections, Proposals]:
-        """Batched NHWC views -> final 3D detections and the proposals."""
+        """Batched NHWC views -> final 3D detections and the proposals;
+        the trunks, ``proposals``, ``roi_fusion`` and ``detect`` are the
+        stages of ``utils.profiling.stage``."""
         cfg = self.cfg
         outs = self.extract_features(top, rgb, front)
         rpn = outs["rpn"]
-        inside = self.anchor_mask(top, top_occ)
-        props = rpn_proposals(rpn["scores"], rpn["deltas"], self.anchors,
-                              inside, cfg, nms_thresh=nms_thresh)
-        boxes = props.rois[..., 1:5]
-        rois3d = box3d_ops.top_box_to_box3d(boxes, cfg)
-        fuse = self.fuse_rois(outs, rois3d, boxes)
-        dets = rcnn_nms(fuse["probs"], fuse["deltas"], rois3d, props.mask,
-                        score_threshold=score_threshold, cfg=cfg)
+        with stage("proposals"):
+            inside = self.anchor_mask(top, top_occ)
+            props = rpn_proposals(rpn["scores"], rpn["deltas"], self.anchors,
+                                  inside, cfg, nms_thresh=nms_thresh)
+            boxes = props.rois[..., 1:5]
+            rois3d = box3d_ops.top_box_to_box3d(boxes, cfg)
+        with stage("roi_fusion"):
+            fuse = self.fuse_rois(outs, rois3d, boxes)
+        with stage("detect"):
+            dets = rcnn_nms(fuse["probs"], fuse["deltas"], rois3d,
+                            props.mask, score_threshold=score_threshold,
+                            cfg=cfg)
         return dets, props
 
     def fuse_rois(self, outs: Dict[str, torch.Tensor], rois3d: torch.Tensor,

@@ -39,6 +39,27 @@ export); its activations are quantized at each call, as in eager.
 
 The program runs its aten ops as the eager model does (nothing is
 compiled) and its kernels through the operators.
+
+Spans (``utils.profiling``; open only while a profiler runs, so
+``profiling.trace`` output shows them as ``user_annotation`` events).
+:meth:`ServingModel.predict_batch` opens ``mv3d.serve.request`` around
+the whole request (the host's moments between two stages are in it and
+in no stage), and inside it one span for each host stage, in this
+order: ``mv3d.serve.cut`` (each cloud cut to the bucket),
+``mv3d.serve.pad`` (the padded point batch and counts),
+``mv3d.serve.rgb`` (the float32 image batch), ``mv3d.serve.quantize``
+(quantized artifacts), ``mv3d.serve.h2d`` (the inputs to the device),
+``mv3d.serve.program`` (the program's launches), ``mv3d.serve.d2h`` (the
+answers to the host, which waits for the device) and
+``mv3d.serve.unpack`` (each frame's live detections); a raw
+:meth:`ServingModel.__call__` opens the middle three. Inside
+``mv3d.serve.program`` the network's stages are ranges
+``mv3d.program.<stage>`` (``voxelize``, ``top_trunk``, ``rgb_trunk``,
+``front_trunk`` with the front view, ``proposals``, ``roi_fusion``,
+``detect``): the export keeps each traced node's stage as node metadata
+(``torch.fx.traceback.annotate``) and :func:`load_serving` wraps each run
+of one stage in its range; an artifact without the metadata loads
+without them. Every kernel of the program is launched inside exactly one.
 """
 
 from __future__ import annotations
@@ -56,6 +77,7 @@ from ..ops import library  # noqa: F401  (registers the mv3d:: operators)
 from ..config import Config
 from ..data.host_aux import within_budget
 from ..device import resolve_device
+from ..utils.profiling import add_stage_ranges, span, stage
 
 _PROGRAM_FILE = "serving_fn.pt2"
 _WEIGHTS_FILE = "weights.npz"
@@ -147,8 +169,9 @@ def build_serving_fn(cfg: Config, score_threshold: float = 0.05,
 
         def fn(model, points_q, refl_q, num_points, rgb):
             dev = model.device
-            pts = dequantize_points(torch.as_tensor(points_q).to(dev),
-                                    torch.as_tensor(refl_q).to(dev), cfg)
+            with stage("voxelize"):
+                pts = dequantize_points(torch.as_tensor(points_q).to(dev),
+                                        torch.as_tensor(refl_q).to(dev), cfg)
             return run(model, pts, num_points, rgb)
 
         def input_specs(b: int):
@@ -259,7 +282,9 @@ def export_serving(model, out_dir: str, batch_size: int = 1,
     ``platforms``: the devices the artifact may run on (default: the
     model's device); the program is the same for all of them. An int8
     model's kept int8 weights (``models.backbone.keep_quantized``) enter
-    the program as constants. The model's train/eval mode is restored."""
+    the program as constants. Each node keeps the stage it was traced in
+    (``utils.profiling.stage``). The model's train/eval mode is
+    restored."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     from ..models.backbone import keep_quantized
@@ -273,8 +298,9 @@ def export_serving(model, out_dir: str, batch_size: int = 1,
     model.model.eval()
     try:
         keep_quantized(model.model)
-        program = torch.export.export(_Program(model, fn), example,
-                                      strict=False)
+        with torch.fx.traceback.preserve_node_meta():
+            program = torch.export.export(_Program(model, fn), example,
+                                          strict=False)
     finally:
         model.model.train(training)
     program.example_inputs = None     # zeros of the signature: not kept
@@ -325,10 +351,13 @@ class ServingModel:
     def __call__(self, *inputs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Raw batched call matching ``meta['input_names']``."""
         with torch.inference_mode():
-            out = self.program(*(
-                torch.from_numpy(np.ascontiguousarray(x, dt)).to(self.device)
-                for x, dt in zip(inputs, self._dtypes)))
-        return tuple(o.cpu().numpy() for o in out)
+            with span("mv3d.serve.h2d"):
+                args = [torch.from_numpy(np.ascontiguousarray(x, dt)).to(
+                    self.device) for x, dt in zip(inputs, self._dtypes)]
+            with span("mv3d.serve.program"):
+                out = self.program(*args)
+        with span("mv3d.serve.d2h"):
+            return tuple(o.cpu().numpy() for o in out)
 
     def predict(self, points: np.ndarray, rgb: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -350,31 +379,41 @@ class ServingModel:
             raise ValueError(
                 f"predict_batch got {len(frames)} frames; artifact batch "
                 f"size is {bsz}")
-        n = self.meta["max_points"]
-        h, w, c = self.meta["rgb_shape"]
-        pts = np.full((bsz, n, 4), -1e9, np.float32)
-        num = np.zeros(bsz, np.int32)
-        rgbs = np.zeros((bsz, h, w, c), np.float32)
-        for i, (p, r) in enumerate(frames):
-            p = within_budget(np.asarray(p, np.float32), n)
-            pts[i, : p.shape[0]] = p
-            num[i] = p.shape[0]
-            rgbs[i] = np.asarray(r, np.float32)
-        if self.meta["quantized"]:
-            from ..ops.quantize import quantize_points
-            b = self.meta["quant_bounds"]
-            q, rq = quantize_points(pts, bounds=(b["lo"], b["hi"]))
-            boxes3d, probs, mask = self(q, rq, num, rgbs)
-        else:
-            boxes3d, probs, mask = self(pts, num, rgbs)
-        return [(boxes3d[i][mask[i]], probs[i][mask[i]])
-                for i in range(len(frames))]
+        with span("mv3d.serve.request"):
+            n = self.meta["max_points"]
+            h, w, c = self.meta["rgb_shape"]
+            with span("mv3d.serve.cut"):
+                clouds = [within_budget(np.asarray(p, np.float32), n)
+                          for p, _ in frames]
+            with span("mv3d.serve.pad"):
+                pts = np.full((bsz, n, 4), -1e9, np.float32)
+                num = np.zeros(bsz, np.int32)
+                for i, p in enumerate(clouds):
+                    pts[i, : p.shape[0]] = p
+                    num[i] = p.shape[0]
+            with span("mv3d.serve.rgb"):
+                rgbs = np.zeros((bsz, h, w, c), np.float32)
+                for i, (_, r) in enumerate(frames):
+                    rgbs[i] = np.asarray(r, np.float32)
+            if self.meta["quantized"]:
+                from ..ops.quantize import quantize_points
+                b = self.meta["quant_bounds"]
+                with span("mv3d.serve.quantize"):
+                    q, rq = quantize_points(pts, bounds=(b["lo"], b["hi"]))
+                boxes3d, probs, mask = self(q, rq, num, rgbs)
+            else:
+                boxes3d, probs, mask = self(pts, num, rgbs)
+            with span("mv3d.serve.unpack"):
+                return [(boxes3d[i][mask[i]], probs[i][mask[i]])
+                        for i in range(len(frames))]
 
 
 def load_serving(artifact_dir: str, device=None) -> ServingModel:
     """Load the program of an artifact written by :func:`export_serving`
     onto ``device`` (the card by default; raises without CUDA). Refuses a
-    device whose platform is not in ``meta["platforms"]``."""
+    device whose platform is not in ``meta["platforms"]``. Each run of one
+    stage of the program is wrapped in its range
+    (``utils.profiling.add_stage_ranges``)."""
     dev = resolve_device(device)
     with open(os.path.join(artifact_dir, _META_FILE)) as f:
         meta = json.load(f)
@@ -384,4 +423,6 @@ def load_serving(artifact_dir: str, device=None) -> ServingModel:
     program = torch.export.load(os.path.join(artifact_dir, meta["program"]))
     if dev.type != "cpu":
         program = move_to_device_pass(program, dev)
-    return ServingModel(program.module(), meta, dev)
+    module = program.module()
+    add_stage_ranges(module)
+    return ServingModel(module, meta, dev)

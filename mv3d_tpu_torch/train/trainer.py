@@ -86,6 +86,7 @@ from ..utils import viz
 from ..utils.logger import Logger
 from ..utils.metrics import MetricsWriter, dump_debug_images
 from ..utils.png import write_png
+from ..utils.profiling import stage
 from ..utils.timer import Timer
 from .augment import augment_batch
 from .checkpoint import SubnetCheckpointer, load_progress, save_progress
@@ -362,18 +363,21 @@ class MV3D:
         """Detection from raw padded lidar points (N, 4) or (B, N, 4), their
         valid counts and the rgb image(s): voxelize, then detect. With
         ``top_aux`` ((Xn, Yn, 2) or (B, Xn, Yn, 2), the host's
-        intensity/density plane) only the heights are computed here."""
+        intensity/density plane) only the heights are computed here. The
+        voxelizers are the stage ``voxelize`` (``utils.profiling.stage``),
+        the network's stages follow (``MV3DNet.forward_inference``)."""
         if score_threshold is None:
             score_threshold = self.cfg.rcnn.score_threshold
         self.model.eval()
-        points = self._batch(points, 3)
-        rgb = self._batch(rgb, 4)
-        num = self._batch(num_points, 1, torch.int32)
-        aux = None if top_aux is None else self._batch(top_aux, 4)
-        top, occ = lidar_to_top_batch(points, self.cfg, num, aux=aux,
-                                      return_occ=True)
-        front = (lidar_to_front_batch(points, self.cfg, num)
-                 if "front" in self.model.views else None)
+        with stage("voxelize"):
+            points = self._batch(points, 3)
+            rgb = self._batch(rgb, 4)
+            num = self._batch(num_points, 1, torch.int32)
+            aux = None if top_aux is None else self._batch(top_aux, 4)
+            top, occ = lidar_to_top_batch(points, self.cfg, num, aux=aux,
+                                          return_occ=True)
+            front = (lidar_to_front_batch(points, self.cfg, num)
+                     if "front" in self.model.views else None)
         dets, _ = self.model.forward_inference(
             top, rgb, front, score_threshold=score_threshold, top_occ=occ)
         return dets

@@ -40,6 +40,7 @@ from mv3d_tpu_torch.serving import (ServingModel, build_serving_fn,
                                     export_serving, load_serving)
 from mv3d_tpu_torch.serving.export import config_from_dict
 from mv3d_tpu_torch.train.trainer import MV3D, Predictor
+from mv3d_tpu_torch.utils import profiling
 
 from test_torch_config import to_port_config
 from test_torch_models import randomize_bn
@@ -320,6 +321,137 @@ def test_entry_points_default_to_the_card(artifact, monkeypatch, tmp_path):
                          platforms=("cuda", "cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         load_serving(art)
+
+
+SERVE_SPANS = ["mv3d.serve." + n for n in ("cut", "pad", "rgb", "h2d",
+                                             "program", "d2h", "unpack")]
+PROGRAM_STAGES = {"voxelize", "top_trunk", "rgb_trunk", "proposals",
+                  "roi_fusion", "detect"}
+
+
+def _profiled(call):
+    """``call()`` under the CPU profiler: (its result, the profiler's
+    events that opened a span or range or ran an aten or mv3d:: op, as
+    (name, start, end) in us, in start order)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = call()
+    evs = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events()
+           if e.name.startswith(("mv3d.", "aten::", "mv3d::"))]
+    return out, sorted(evs, key=lambda e: e[1])
+
+
+@pytest.fixture(scope="module")
+def profiled_request(served):
+    """One batch-2 request of the served artifact with the profiler off
+    and one with it on: (frames, answers off, answers on, events)."""
+    pts, num, rgb = _inputs(b=2, seed=6)
+    frames = [(pts[i][: num[i]], rgb[i]) for i in range(2)]
+    off = served.predict_batch(frames)
+    on, evs = _profiled(lambda: served.predict_batch(frames))
+    return frames, off, on, evs
+
+
+def test_request_opens_each_serve_span_once_in_order(profiled_request):
+    """A profiled ``predict_batch`` opens each host stage's span once, in
+    the order of the request, none inside another, all inside the
+    request's span."""
+    evs = [e for e in profiled_request[3]
+           if e[0].startswith("mv3d.serve.")]
+    assert [e[0] for e in evs] == ["mv3d.serve.request"] + SERVE_SPANS
+    (_, lo, hi), evs = evs[0], evs[1:]
+    for (_, _, end), (_, start, _) in zip(evs, evs[1:]):
+        assert end <= start
+    assert lo <= evs[0][1] and evs[-1][2] <= hi
+
+
+def test_program_ops_fall_under_exactly_one_stage_range(served,
+                                                        profiled_request):
+    """Every aten and mv3d:: op the loaded program runs lies inside
+    exactly one ``mv3d.program.<stage>`` range, and every configured
+    stage opens one; the loaded graph wraps each run of one stage."""
+    evs = profiled_request[3]
+    (_, lo, hi), = [e for e in evs if e[0] == "mv3d.serve.program"]
+    ranges = [e for e in evs if e[0].startswith("mv3d.program.")]
+    assert {e[0].removeprefix("mv3d.program.") for e in ranges} \
+        == PROGRAM_STAGES
+    ops = [e for e in evs if e[0].startswith(("aten::", "mv3d::"))
+           and lo <= e[1] <= hi]
+    assert any(e[0] == "mv3d::stable_sort" for e in ops)
+    for name, start, end in ops:
+        inside = [r for r in ranges if r[1] <= start and end <= r[2]]
+        assert len(inside) == 1, (name, inside)
+    nodes = [n for n in served.program.graph.nodes
+             if n.op == "call_function"]
+    assert sum(n.target is profiling.range_enter for n in nodes) \
+        == len(ranges)
+
+
+def test_answers_are_the_same_with_the_profiler_on(profiled_request):
+    _, off, on, _ = profiled_request
+    assert len(off) == len(on) == 2 and len(off[0][0]) > 0
+    for (b0, p0), (b1, p1) in zip(off, on):
+        np.testing.assert_array_equal(b0, b1)
+        np.testing.assert_array_equal(p0, p1)
+
+
+def test_no_range_is_opened_without_a_profiler(model, served,
+                                               profiled_request,
+                                               monkeypatch):
+    """With no profiler running, a request and an eager prediction open
+    no ``record_function``: every span and range opens through
+    ``profiling.record_function``, which is made to raise, and which a
+    profiled request does reach."""
+    def refuse(name, *args):
+        raise AssertionError(f"record_function({name!r}) opened")
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    frames, off, _, _ = profiled_request
+    got = served.predict_batch(frames)
+    for (b0, p0), (b1, p1) in zip(off, got):
+        np.testing.assert_array_equal(b0, b1)
+        np.testing.assert_array_equal(p0, p1)
+    pts, num, rgb = _inputs(b=2, seed=6)
+    model.predict_from_points(pts, num, rgb, THRESH)
+    with pytest.raises(AssertionError, match="mv3d.serve.request"):
+        _profiled(lambda: served.predict_batch(frames))
+
+
+def test_eager_prediction_opens_the_same_stage_ranges(model):
+    """``MV3D.predict_from_points`` opens the stages' ranges from the same
+    helper, each once, in order, with its ops inside."""
+    pts, num, rgb = _inputs(b=2, seed=6)
+    _, evs = _profiled(lambda: model.predict_from_points(pts, num, rgb,
+                                                         THRESH))
+    ranges = [e for e in evs if e[0].startswith("mv3d.program.")]
+    assert [e[0].removeprefix("mv3d.program.") for e in ranges] == [
+        "voxelize", "top_trunk", "rgb_trunk", "proposals", "roi_fusion",
+        "detect"]
+    assert any(e[0] == "mv3d::stable_sort" and ranges[0][1] <= e[1]
+               and e[2] <= ranges[0][2] for e in evs)
+
+
+def test_artifact_without_stage_metadata_loads_and_answers(
+        artifact, served, profiled_request, tmp_path):
+    """A program saved without the stages' node metadata (as an artifact
+    exported before it was kept) loads with no range and answers the
+    same."""
+    import shutil
+    old = tmp_path / "old"
+    shutil.copytree(artifact, old)
+    program = torch.export.load(str(old / "serving_fn.pt2"))
+    for node in program.graph.nodes:
+        node.meta.pop("custom", None)
+    torch.export.save(program, str(old / "serving_fn.pt2"))
+    loaded = load_serving(str(old), device="cpu")
+    assert not any(n.target is profiling.range_enter
+                   for n in loaded.program.graph.nodes)
+    frames, off, _, _ = profiled_request
+    got, evs = _profiled(lambda: loaded.predict_batch(frames))
+    assert not [e for e in evs if e[0].startswith("mv3d.program.")]
+    for (b0, p0), (b1, p1) in zip(off, got):
+        np.testing.assert_array_equal(b0, b1)
+        np.testing.assert_array_equal(p0, p1)
 
 
 def _post(port, body, accept=None, timeout=120):
