@@ -57,10 +57,11 @@ each of their hand-written kernels against its plain PyTorch version:
 Phases:
 
   1. require CUDA; print the card's name and power limit;
-  2. build the five kernels from this checkout's sources (one nvcc each,
+  2. build the six kernels from this checkout's sources (one nvcc each,
      in parallel); print ptxas's registers, spills and shared memory of
-     the K1, K2, K4 and merge kernels, K1's tile plan and how many radix
-     clusters the card holds at once (cudaOccupancyMaxActiveClusters);
+     the K1, K2, K4, merge and bn_relu kernels, K1's tile plan and how
+     many radix clusters the card holds at once
+     (cudaOccupancyMaxActiveClusters);
      ``precision``: a fresh process that sets nothing builds
      ``MV3D(device="cuda")`` and finds cuDNN's and cuBLAS's TF32 switches
      off (``check_tf32_off``; the entry points turn them off, this script
@@ -75,8 +76,12 @@ Phases:
      1 or 2 merge passes) on keys that need 0 to 4 digit passes and ties
      across runs, one merge pass alone against its plain twin, and K1 on
      K4's output against K1 on the unsorted points (at 65,536 and 131,072
-     points); then, on the card, the s2d2p pair and the s2d2 view
-     equal the folded hwc view bit for bit (K2 against K1) and their
+     points); ``mv3d::bn_relu`` at the served cells' BatchNorm sites and
+     element by element against cast + cuDNN BatchNorm + ReLU + cast, under
+     1e-3 of the elements apart and each by no more than rounding allows
+     (``check_bn_relu``); then, on the card, the s2d2p
+     pair and the s2d2 view equal the folded hwc view bit for bit (K2
+     against K1) and their
      unfolded occupancy the hwc occupancy; the front view
      (``use_front=True``, B=2 full-width clouds) on the card against the
      CPU, every point's pixel equal and the values within atol 5e-5;
@@ -279,6 +284,7 @@ tests.
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1086,6 +1092,9 @@ def run_train_main(argv, counters):
 
 
 def _expect(counts, want, label):
+    """Each count ``want`` names equals its value there; None reads it
+    without holding it to a number."""
+    want = {k: v for k, v in want.items() if v is not None}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: kernel launches {got}, expected "
@@ -1140,8 +1149,9 @@ def train_command_phase(rng, cfg, dev, work_dir, counters):
         f"plane) 12 iterations in {secs:.1f} s: {n_train} training and "
         f"{n_val} validation steps, voxelize_padded launched "
         f"{counts['voxelize_padded']} times (one per training step, eval "
-        f"step and validation prediction), no other kernel; validation iou "
-        + ", ".join(f"{r['iou']:.4f}" for r in val) + "; losses finite; "
+        f"step and validation prediction), no other K1-K4 kernel; "
+        f"validation iou " + ", ".join(f"{r['iou']:.4f}" for r in val)
+        + "; losses finite; "
         "log.txt, metrics JSONL, dashboard.html and checkpoints of all "
         "four subnets written")
 
@@ -1356,7 +1366,7 @@ def eval_command_phase(rng, cfg, dev, work_dir, data_dir, counters, card):
     ckpt = os.path.join(os.path.dirname(work_dir), "train_cmd", "ckpt")
     tags = KittiObjectDataset(data_dir).tags
     total = {k: 0 for k in counters}
-    none = {k: 0 for k in counters}
+    none = idle(counters)
 
     def run(label, main, argv, want, frames=None):
         secs, counts, out = run_main(main, argv, counters)
@@ -1677,7 +1687,7 @@ def options_phase(rng, dev, work_dir, counters, requests, card):
     from mv3d_tpu_torch.data.tracklets import parse_tracklets
     from mv3d_tpu_torch.train.trainer import MV3D, Trainer
     total = {k: 0 for k in counters}
-    none = {k: 0 for k in counters}
+    none = idle(counters)
 
     def add(counts):
         for k in total:
@@ -1865,7 +1875,7 @@ def int8_phase(rng, dev, work_dir, counters, requests, card):
     from mv3d_tpu_torch.serving import load_serving
     from mv3d_tpu_torch.train.trainer import MV3D
     total = {k: 0 for k in counters}
-    none = {k: 0 for k in counters}
+    none = idle(counters)
     cfg = with_pipeline(kitti_config(), use_pallas_fused=True)
     int8 = with_model(cfg, quant="int8")
 
@@ -1896,15 +1906,20 @@ def int8_phase(rng, dev, work_dir, counters, requests, card):
         model = hwc if name == "hwc" else MV3D(c, device=dev, seed=0)
         torch.cuda.reset_peak_memory_stats()
         times, outs = [], []
+        sites = bn_sites()
         for fn in counters.values():
             fn.launches = 0
+        sites.count = 0
         for p, n, r in requests:
             t1 = time.time()
             outs.append(model.predict_from_points(p, n, r, THRESH))
             torch.cuda.synchronize()
             times.append((time.time() - t1) * 1e3)
         counts = {k: fn.launches for k, fn in counters.items()}
-        _expect(counts, {**none, **want}, f"int8 {name}")
+        _expect(counts, {**none, **want, "bn_relu": sites.count},
+                f"int8 {name}")
+        if not sites.count:
+            raise AssertionError(f"int8 {name}: no BatchNorm site ran")
         for k in total:
             total[k] += counts[k]
         for d in outs:
@@ -2145,7 +2160,7 @@ def parallel_phase(rng, dev, work_dir, counters, requests, card,
     from mv3d_tpu_torch.train.checkpoint import SubnetCheckpointer
     from mv3d_tpu_torch.train.trainer import MV3D, Trainer
     total = {k: 0 for k in counters}
-    none = {k: 0 for k in counters}
+    none = idle(counters)
 
     def counted(fn, want, label):
         for c in counters.values():
@@ -2377,7 +2392,7 @@ def run_counted(fn, counters, want, label, total):
     out = fn()
     torch.cuda.synchronize()
     counts = {name: c.launches for name, c in counters.items()}
-    _expect(counts, {**{name: 0 for name in counters}, **want}, label)
+    _expect(counts, {**idle(counters), **want}, label)
     for name in total:
         total[name] += counts[name]
     return out
@@ -2514,6 +2529,7 @@ def cost_and_trace_phase(model, rng, cfg, dev, work_dir, counters, card):
 
 def kernel_counters():
     """{kernel name: the wrapper whose ``launches`` counts its launches}."""
+    from mv3d_tpu_torch.ops import bn_relu as fused_bn
     from mv3d_tpu_torch.ops import sort_bitonic as sb
     from mv3d_tpu_torch.ops import voxelize_heights as vh
     from mv3d_tpu_torch.ops import voxelize_padded as vp
@@ -2522,7 +2538,37 @@ def kernel_counters():
             "voxelize_padded": vp.scatter_top_padded_batched,
             "voxelize_heights": vh.scatter_max_batched,
             "sort_radix": sb.bitonic_sort_batched,
-            "sort_merge": sb.merge_pass_kernel}
+            "sort_merge": sb.merge_pass_kernel,
+            "bn_relu": fused_bn.bn_relu}
+
+
+def idle(counters):
+    """The counts of a phase that launches none of the kernels but those
+    it names: 0 for each, but ``bn_relu``, which launches once per
+    eval-mode BatchNorm site of the models the phase runs, read (None)
+    where the phase does not count those sites (:func:`bn_sites`)."""
+    return {k: None if k == "bn_relu" else 0 for k in counters}
+
+
+def bn_sites():
+    """A count (``.count``) of the eval-mode BatchNorm sites that eager
+    models run on the card: ``models.backbone.bn_relu``, wrapped once in
+    this process, counts each such call. Each launches ``mv3d::bn_relu``
+    once; a frozen program runs no Python, and launches it once for each
+    site its eager twin runs."""
+    from mv3d_tpu_torch.models import backbone
+    counted = backbone.bn_relu
+    if not hasattr(counted, "count"):
+        real = counted
+
+        def counted(bn, x, dtype):
+            if not bn.training and x.is_cuda:
+                counted.count += 1
+            return real(bn, x, dtype)
+
+        counted.count = 0
+        backbone.bn_relu = counted
+    return counted
 
 
 # the learning gate in a fresh interpreter, as a user runs the command
@@ -2586,7 +2632,7 @@ def learning_phase(work_dir, counters, card):
         out = os.path.join(work_dir, f"gen{i}")
         res, counts = got["result"], got["launches"]
         steps = len(_metric_rows(os.path.join(out, "log"), "rehearsal"))
-        _expect(counts, {**{name: 0 for name in counters},
+        _expect(counts, {**idle(counters),
                          "voxelize_heights": steps, "voxelize_sweep": 2},
                 f"learning run {i}")
         for name in total:
@@ -3299,12 +3345,15 @@ def check_folded_views(rng, cfg, dev, n_pts):
 def serve_requests(model, requests, counters, want, times=None):
     """Serve ``requests`` through ``model.predict_from_points`` with the
     kernels' counts set to 0 just before; check each detection batch and
-    that each counter reads ``want[name]`` just after. Appends each
-    request's wall ms (host clock, synchronized) to ``times`` where
+    that each counter reads ``want[name]`` just after, ``bn_relu`` once
+    per eval-mode BatchNorm site the model ran (:func:`bn_sites`). Appends
+    each request's wall ms (host clock, synchronized) to ``times`` where
     given. Returns the counts."""
     import torch
+    sites = bn_sites()
     for fn in counters.values():
         fn.launches = 0
+    sites.count = 0
     outs = []
     for p, n, r in requests:
         t0 = time.time()
@@ -3313,7 +3362,8 @@ def serve_requests(model, requests, counters, want, times=None):
         if times is not None:
             times.append((time.time() - t0) * 1e3)
     counts = {name: fn.launches for name, fn in counters.items()}
-    if counts != want:
+    want = {**want, "bn_relu": sites.count}
+    if counts != want or not sites.count:
         raise AssertionError(f"kernel launches {counts}, expected {want} for "
                              f"{len(requests)} requests")
     cfg = model.cfg
@@ -3447,7 +3497,8 @@ def serve_http(rng, cfg, dev, work_dir, counters):
     B=2 through the CLI and serve it; GET /healthz, POST a single-frame
     npz, a two-frame npz and a JSON request, and a malformed body (400),
     with the kernels' counts set to 0 just before and read just after
-    (K4 and K1 once per request, K2 and K3 never). Then the answers must
+    (K4 and K1 once per request, K2 and K3 never, ``bn_relu`` once per
+    BatchNorm site the eager twin runs a request). Then the answers must
     equal in-process ``ServingModel.predict_batch`` and the same weights
     at ``voxel_order="sort"`` bit for bit, with live detections; and a
     quantized artifact's answer its in-process call. Returns the counts."""
@@ -3491,22 +3542,27 @@ def serve_http(rng, cfg, dev, work_dir, counters):
                 raise AssertionError(f"malformed body: HTTP {e.code}")
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counters.items()}
-    want = {"voxelize_sweep": 3, "voxelize_padded": 0,
-            "voxelize_heights": 0, "sort_radix": 3, "sort_merge": 0}
-    if counts != want:
-        raise AssertionError(f"HTTP requests: kernel launches {counts}, "
-                             f"expected {want}")
     if meta["status"] != "ok" or meta["batch_size"] != 2:
         raise AssertionError(f"healthz: {meta}")
     served = load_serving(art, device=dev)
     by_sort = eager_serving(eager_model(art, dev, voxel_order="sort"),
                             served.meta)
+    sites = bn_sites()
+    sites.count = 0
     for ref, what in ((served, "in-process predict_batch"),
                       (by_sort, "voxel_order='sort'")):
         for ans, fr in zip(answers, frames):
             for (gb, gp), (wb, wp) in zip(ans, ref.predict_batch(fr)):
                 if not (np.array_equal(gb, wb) and np.array_equal(gp, wp)):
                     raise AssertionError(f"HTTP answer differs from {what}")
+    # the eager twin ran the three requests' BatchNorm sites (the frozen
+    # program none): the program launched mv3d::bn_relu once for each
+    want = {"voxelize_sweep": 3, "voxelize_padded": 0,
+            "voxelize_heights": 0, "sort_radix": 3, "sort_merge": 0,
+            "bn_relu": sites.count}
+    if counts != want or not sites.count:
+        raise AssertionError(f"HTTP requests: kernel launches {counts}, "
+                             f"expected {want}")
     live = [len(p) for ans in answers for _, p in ans]
     if not sum(live):
         raise AssertionError("HTTP requests: no live detection")
@@ -3640,6 +3696,218 @@ def check_operators(args, hargs, padded, n_sc):
         "the operators on CPU tensors")
 
 
+# mv3d::bn_relu at the served cells' sites (B=8; benchmark configurations
+# kitti and didi2 in the s2d2p serving layout): name -> ((N, C, H, W) as
+# the conv wrote it, columns kept by the split stem's crop or 0). The
+# trunks, their stem and the ROI towers are channels-last, as cuDNN's
+# convs write them from the permuted NHWC views; the dense layers 2-D
+BN_RELU_SITES = {
+    "kitti top stem (cropped)": ((8, 64, 400, 304), 300),
+    "kitti top stage 1, 64": ((8, 64, 200, 150), 0),
+    "kitti top stage 1, 256": ((8, 256, 200, 150), 0),
+    "kitti top stage 2, 128": ((8, 128, 100, 75), 0),
+    "kitti top stage 2, 512": ((8, 512, 100, 75), 0),
+    "kitti rgb stem / stage 1, 64": ((8, 64, 94, 311), 0),
+    "kitti rgb stage 1, 256": ((8, 256, 94, 311), 0),
+    "kitti rgb stage 2, 128": ((8, 128, 47, 156), 0),
+    "kitti rgb stage 2, 512": ((8, 512, 47, 156), 0),
+    "didi2 top stem (cropped)": ((8, 64, 250, 160), 150),
+    "didi2 top stage 1, 256": ((8, 256, 125, 75), 0),
+    "didi2 top stage 2, 512": ((8, 512, 63, 38), 0),
+    "didi2 rgb stem / stage 1, 64": ((8, 64, 149, 342), 0),
+    "didi2 rgb stage 1, 256": ((8, 256, 149, 342), 0),
+    "didi2 rgb stage 2, 128": ((8, 128, 75, 171), 0),
+    "didi2 rgb stage 2, 512": ((8, 512, 75, 171), 0),
+    "roi tower 6x6": ((240, 128, 6, 6), 0),
+    "roi tower 3x3": ((240, 256, 3, 3), 0),
+    "roi tower 2x2": ((240, 512, 2, 2), 0),
+    "dense 512": ((240, 512), 0),
+    "dense 256": ((240, 256), 0),
+}
+# the kernel's element-at-a-time mode, small: NCHW (H*W a multiple of 8
+# and not), a cropped NCHW view, channels-last with 5 channels; f32 in and
+# out
+BN_RELU_MODES = {
+    "nchw, H*W % 8 == 0": ((8, 64, 40, 30), 0, False),
+    "nchw, H*W odd": ((8, 64, 47, 39), 0, False),
+    "nchw cropped": ((8, 64, 40, 32), 30, False),
+    "nhwc, 5 channels": ((8, 5, 40, 30), 0, True),
+}
+
+
+def bn_relu_case(shape, crop, dtype, dev, channels_last=True, seed=0):
+    """A conv output of ``shape`` (cut to ``crop`` columns) in ``dtype``
+    and an eval-mode BatchNorm's four f32 vectors, drawn from ``seed``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g) * 2 + 0.3).to(dtype).to(dev)
+    if channels_last and len(shape) == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    if crop:
+        x = x[..., :crop]
+    params = [(torch.rand(c, generator=g) * 2 - 0.5),
+              torch.randn(c, generator=g), torch.randn(c, generator=g),
+              torch.rand(c, generator=g) * 3 + 0.01]
+    return x, [t.to(dev) for t in params]
+
+
+def ulps_apart(a, b):
+    """Per element, how many representable values of ``a``'s dtype lie
+    between ``a`` and ``b`` (both >= 0, as ReLU leaves them; -0 is 0)."""
+    import torch
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    ia, ib = (torch.where(t == 0, 0, t.view(bits).long()) for t in (a, b))
+    return (ia - ib).abs()
+
+
+def beyond_rounding(got, want, x, params, eps=1e-5):
+    """How many elements of ``got`` and ``want`` (two f32 computations of
+    ``relu(x * scale + shift)`` rounded to their dtype, in another order)
+    differ by more than one ulp of the dtype plus 8 f32 ulps of the
+    affine's terms, |x * scale| + |mean * scale| + |bias|: where the terms
+    cancel near 0, a few f32 ulps of them are many ulps of the result."""
+    import torch
+    w, b, m, v = (t.reshape((1, -1) + (1,) * (x.dim() - 2)) for t in params)
+    scale = w / torch.sqrt(v + eps)
+    terms = (x.float() * scale).abs() + (m * scale).abs() + b.abs()
+    bits = 8 if got.dtype == torch.bfloat16 else 24
+    _, exp = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(terms), exp - bits)
+    diff = (got.float() - want.float()).abs()
+    return int((diff > ulp + terms * 2.0 ** -21).sum())
+
+
+def check_bn_relu(dev, sites=None, modes=None):
+    """``mv3d::bn_relu`` on CUDA tensors at ``sites`` (default
+    :data:`BN_RELU_SITES`, bf16) and ``modes`` (default
+    :data:`BN_RELU_MODES`, bf16 and f32) against its plain version on the
+    card (cast, cuDNN's BatchNorm, ReLU, cast): one launch each, output
+    strides equal, none apart by more than rounding allows
+    (:func:`beyond_rounding`), and in bf16 under 1e-3 of the elements
+    apart at all. Returns {case:
+    (elements, largest ulps apart, share apart, largest |difference|)}."""
+    import torch
+    from mv3d_tpu_torch.ops import bn_relu as fused
+    cases = [(name, shape, crop, torch.bfloat16, True)
+             for name, (shape, crop) in (BN_RELU_SITES if sites is None
+                                         else sites).items()]
+    cases += [(f"{name} {dt}", shape, crop, dt, cl)
+              for name, (shape, crop, cl) in (BN_RELU_MODES if modes is None
+                                             else modes).items()
+              for dt in (torch.bfloat16, torch.float32)]
+    out = {}
+    for name, shape, crop, dtype, cl in cases:
+        x, p = bn_relu_case(shape, crop, dtype, dev, cl)
+        before = fused.bn_relu.launches
+        got = fused.bn_relu(x, *p, 1e-5)
+        want = fused.bn_relu_plain(x, *p, 1e-5)
+        torch.cuda.synchronize()
+        apart = ulps_apart(got, want)
+        out[name] = (x.numel(), int(apart.max()),
+                     float((apart > 0).double().mean()),
+                     float((got.float() - want.float()).abs().max()))
+        beyond = beyond_rounding(got, want, x, p)
+        # in f32 most elements move by an ulp with the order of operations
+        many = dtype == torch.bfloat16 and out[name][2] >= 1e-3
+        if (fused.bn_relu.launches != before + 1 or got.stride()
+                != want.stride() or beyond or many):
+            raise AssertionError(f"mv3d::bn_relu at {name} {tuple(shape)}: "
+                                 f"launches {fused.bn_relu.launches - before}"
+                                 f", strides {got.stride()} vs "
+                                 f"{want.stride()}, (elements, ulps, share "
+                                 f"apart) {out[name]}, {beyond} beyond "
+                                 f"rounding")
+        del x, got, want, apart
+    return out
+
+
+def time_bn_relu(dev, sites=None, iters=50, ring_bytes=256e6):
+    """Device ms a call at ``sites`` (default :data:`BN_RELU_SITES`, bf16),
+    the host's share left out (:func:`device_ms`): the bound, 4 bytes an
+    element (read bf16, write bf16) at 3.35 TB/s, the kernel, and the
+    composition it replaced (cast, cuDNN's BatchNorm, ReLU, cast). The
+    calls cycle through copies of the input, up to 8, that together hold
+    ``ring_bytes``, so that sites smaller than the 50 MB L2 cache are read
+    from HBM as the program reads them. Returns {site: (bound, kernel,
+    composition)}, None where not measured."""
+    import torch
+    import torch.nn.functional as F
+    from mv3d_tpu_torch.ops import bn_relu as fused
+    out = {}
+    for name, (shape, crop) in (BN_RELU_SITES if sites is None
+                                else sites).items():
+        x, (w, b, m, v) = bn_relu_case(shape, crop, torch.bfloat16, dev)
+        full = x if x._base is None else x._base
+        copies = min(8, max(1, int(ring_bytes // (2 * full.numel()))))
+        ring = [x] + [full.clone()[..., :crop] if crop else full.clone()
+                      for _ in range(copies - 1)]
+        turn = [0]
+
+        def nxt():
+            turn[0] += 1
+            return ring[turn[0] % len(ring)]
+
+        def composition():
+            return F.relu(F.batch_norm(nxt().to(torch.float32), m, v, w, b,
+                                       False, 0.0, 1e-5)).to(torch.bfloat16)
+
+        def kernel():
+            return fused.bn_relu_kernel(nxt(), w, b, m, v, 1e-5)
+
+        times = [device_ms(fn, iters) for fn in (kernel, composition,
+                                                 kernel)]
+        ms = [t for t in (times[0], times[2]) if t is not None]
+        out[name] = (4 * x.numel() / HBM_BYTES_PER_S * 1e3,
+                     min(ms) if ms else None, times[1])
+        del x, full, ring
+    return out
+
+
+def bn_relu_program_launches(dev, work_dir):
+    """A small serving program in the s2d2p layout (bf16, B=2) exported
+    and loaded on ``dev``: the BatchNorm sites its eager call runs (each
+    module once) and the ``mv3d::bn_relu`` launches of two requests of the
+    frozen program. Returns (sites, launches)."""
+    import numpy as np
+    from mv3d_tpu_torch import kitti_config, serving_config
+    from mv3d_tpu_torch.models import backbone
+    from mv3d_tpu_torch.ops import bn_relu as fused
+    from mv3d_tpu_torch.serving import export_serving, load_serving
+    from mv3d_tpu_torch.train.trainer import MV3D
+    cfg = serving_config(kitti_config())
+    cfg = dataclasses.replace(
+        cfg, top=dataclasses.replace(cfg.top, x_max=16.0, y_min=-6.0,
+                                     y_max=6.0, x_div=0.2, y_div=0.2),
+        pipeline=dataclasses.replace(cfg.pipeline, max_points=2048),
+        image_width=96, image_height=64)
+    model = MV3D(cfg, device=dev, seed=0)
+    art = export_serving(model, os.path.join(work_dir, "bn_relu_art"),
+                         batch_size=2)
+    served = load_serving(art, device=dev)
+    pts = make_cloud(np.random.RandomState(8), 2, 2048, cfg, tricky=False)
+    num = np.full(2, 2048, np.int32)
+    rgb = np.random.RandomState(9).rand(2, 64, 96, 3).astype(np.float32)
+    sites = []
+    real = backbone.bn_relu
+
+    def record(bn, x, dtype):
+        sites.append(bn)
+        return real(bn, x, dtype)
+
+    backbone.bn_relu = record
+    try:
+        eager_serving(model, served.meta)(pts, num, rgb)
+    finally:
+        backbone.bn_relu = real
+    if len({id(bn) for bn in sites}) != len(sites):
+        raise AssertionError("a BatchNorm site ran twice in one request")
+    before = fused.bn_relu.launches
+    for _ in range(2):
+        served(pts, num, rgb)
+    return len(sites), fused.bn_relu.launches - before
+
+
 def eager_model(art, dev, **pipeline):
     """An eager ``MV3D`` on ``dev`` from an artifact's ``weights.npz`` at its
     ``config.json`` (``pipeline`` fields replaced): the reference its
@@ -3730,9 +3998,10 @@ def frozen_phase(rng, cfg, dev, work_dir, counters, card, artifacts,
     pallas-sort artifacts for the windows. Each of the first six is
     loaded in a fresh interpreter that, after its requests, must hold
     neither ``mv3d_tpu_torch.models`` nor ``mv3d_tpu_torch.train``; K1,
-    K2, K4 and the merge launches are counted per request exactly; the
-    answers are held against the eager serving function of the same
-    weights (``eager_model``: bit for bit; mask agreement and max |d| of
+    K2, K4 and the merge launches are counted per request exactly, and
+    ``bn_relu``'s equal the BatchNorm sites the eager serving function of
+    the same weights runs a request; the answers are held against that
+    function (``eager_model``: bit for bit; mask agreement and max |d| of
     boxes and probs printed), and the CPU-traced program's against the
     card-traced one's. Then closed-loop windows of the program beside the
     eager model at B=1 and B=8, at pallas-sort in bf16 and int8, on the
@@ -3743,8 +4012,8 @@ def frozen_phase(rng, cfg, dev, work_dir, counters, card, artifacts,
     import torch
     from mv3d_tpu_torch.ops.quantize import quantize_points
     from mv3d_tpu_torch.serving import build_serving_fn, load_serving
-    none = {k: 0 for k in counters}
-    total = dict(none)
+    none = idle(counters)
+    total = {k: 0 for k in counters}
     n_pts = cfg.pipeline.max_points
     export_s = {}
 
@@ -3831,6 +4100,8 @@ def frozen_phase(rng, cfg, dev, work_dir, counters, card, artifacts,
             meta = json.load(f)
         ref = eager_serving(model, meta)
         agree, d_box, d_prob, equal, live = 0.0, 0.0, 0.0, True, []
+        sites = bn_sites()
+        sites.count = 0
         for got, req in zip(answers[name], inputs[name]):
             want_out = ref(*req)
             if got[0].shape != want_out[0].shape or not (
@@ -3848,6 +4119,16 @@ def frozen_phase(rng, cfg, dev, work_dir, counters, card, artifacts,
             live.append(int(got[2].sum()))
         if not sum(live):
             raise AssertionError(f"frozen {name}: no live detection")
+        # each request of the program launched mv3d::bn_relu once for each
+        # BatchNorm site the eager call of the same request ran
+        per_request = sites.count // n_req
+        got_bn = [c["bn_relu"] for c in rep["launches"]]
+        if not per_request or got_bn != [per_request] * n_req \
+                or sites.count != per_request * n_req:
+            raise AssertionError(f"frozen {name}: bn_relu launches per "
+                                 f"request {got_bn}, the eager twin's "
+                                 f"BatchNorm sites {sites.count} over "
+                                 f"{n_req} request(s)")
         log(f"phase frozen: {name} (B={b}, {meta['max_points']} points, "
             f"platforms {meta['platforms']}, traced on {meta['traced_on']}):"
             f" loaded in a fresh process in {rep['load_s']:.1f} s, "
@@ -4000,6 +4281,7 @@ def main(argv=None) -> int:
 
     import numpy as np
     from mv3d_tpu_torch import kitti_config, serving_config
+    from mv3d_tpu_torch.ops import bn_relu as fused_bn
     from mv3d_tpu_torch.ops import cuda_build
     from mv3d_tpu_torch.ops import sort_bitonic as sb
     from mv3d_tpu_torch.ops import voxelize as vox
@@ -4029,14 +4311,15 @@ def main(argv=None) -> int:
         shutil.rmtree(d, ignore_errors=True)
     counters = kernel_counters()
 
-    # -- 2. build the five kernels, one nvcc each, in parallel ------------
+    # -- 2. build the six kernels, one nvcc each, in parallel -------------
     t0 = time.time()
     cuda_build.build_libraries(cuda_build.SOURCES)
     for load in (sweep._library, vp._library, vh._library,
-                 sb._radix_library, sb._merge_library):
+                 sb._radix_library, sb._merge_library, fused_bn._library):
         load()
     log(f"phase build: voxelize_sweep, voxelize_padded, voxelize_heights, "
-        f"sort_radix and sort_merge built in {time.time() - t0:.2f} s")
+        f"sort_radix, sort_merge and bn_relu built in "
+        f"{time.time() - t0:.2f} s")
     radix = sb._radix_library()
     tile, n_tiles, smem = sweep.tile_plan(2 * n_cells, zn)
     for src, note in (
@@ -4054,7 +4337,10 @@ def main(argv=None) -> int:
              f"{radix.mv3d_sort_radix_max_clusters()} (rows of 65,536 in "
              f"one wave)"),
             (sb.MERGE_SOURCE, "merge_pass: tiles of 2,048 outputs, 256 "
-             "threads")):
+             "threads"),
+            (fused_bn.SOURCE, "mv3d_bn_relu_kernel: 256 threads, one "
+             "wave of blocks (as many as occupancy allows on each SM), 8 B "
+             "of dynamic shared memory a channel")):
         log(f"phase build: ptxas, {os.path.basename(src)}: "
             + "; ".join(cuda_build.ptxas_report(src)) + f"; {note}")
 
@@ -4206,6 +4492,13 @@ def main(argv=None) -> int:
                   device_ms(lambda: vp.scatter_top_padded_kernel(
                       pflat, pval, prefl, n_sc, zn)))
     check_operators(args, hargs, (pflat, pval, prefl), n_sc)
+    apart = check_bn_relu(dev)
+    bn_err = max(v[3] for v in apart.values())
+    log("phase kernel-vs-plain: bn_relu at the served cells' sites (bf16) "
+        "and element by element (bf16, f32) against cast + cuDNN BatchNorm "
+        "+ ReLU + cast on the card, one launch each; (elements, largest "
+        "ulps apart, share apart, largest |difference|): " + "; ".join(
+            f"{k} {v}" for k, v in apart.items()))
     del got_h, plain_h, lib_h, lib_idx, pflat, pval, prefl
     del long_rows, runs, merged
     check_folded_views(rng, pad_cfg, dev, n_pts)
@@ -4223,24 +4516,27 @@ def main(argv=None) -> int:
                  rng.rand(2, *cfg.rgb_shape).astype(np.float32))
                 for _ in range(3)]
     model = MV3D(serve_cfg, device=dev, seed=0)
-    serve_launches = serve_requests(
+    serve_counts = [serve_requests(
         model, requests, counters,
         {"voxelize_sweep": 3, "voxelize_padded": 0,
          "voxelize_heights": 0, "sort_radix": 0,
-         "sort_merge": 0})["voxelize_sweep"]
+         "sort_merge": 0})]
+    serve_launches = serve_counts[0]["voxelize_sweep"]
     check_top_view_card_vs_cpu(serve_cfg, requests[0][0], dev)
     small_reference(rng, dev)
     pad_model = MV3D(pad_cfg, device=dev, seed=0)
-    padded_launches = serve_requests(
+    serve_counts.append(serve_requests(
         pad_model, requests, counters,
         {"voxelize_sweep": 0, "voxelize_padded": 3,
          "voxelize_heights": 0, "sort_radix": 0,
-         "sort_merge": 0})["voxelize_padded"]
+         "sort_merge": 0}))
+    padded_launches = serve_counts[1]["voxelize_padded"]
     check_top_view_card_vs_cpu(pad_cfg, requests[0][0], dev)
     small_reference(rng, dev, serving=True)
     http_counts, artifacts = serve_http(rng, serve_cfg, dev, work_dirs[0],
                                         counters)
     http_launches = http_counts["sort_radix"]
+    serve_counts.append(http_counts)
     # uncropped sweeps longer than a cluster holds: radix blocks, then one
     # merge pass per request
     long_model = MV3D(dataclasses.replace(serve_cfg, pipeline=dataclasses.
@@ -4250,11 +4546,12 @@ def main(argv=None) -> int:
     long_requests = [(make_cloud(rng, 2, 2 * n_pts, cfg, tricky=False),
                       np.full(2, 2 * n_pts, np.int32), rgb)
                      for _, _, rgb in requests[:2]]
-    long_launches = serve_requests(
+    serve_counts.append(serve_requests(
         long_model, long_requests, counters,
         {"voxelize_sweep": 2, "voxelize_padded": 0,
          "voxelize_heights": 0, "sort_radix": 2,
-         "sort_merge": 2})["sort_merge"]
+         "sort_merge": 2}))
+    long_launches = serve_counts[3]["sort_merge"]
     del long_model, long_requests
 
     started("training")
@@ -4331,6 +4628,14 @@ def main(argv=None) -> int:
         f"{us_text(padded_f32[2])} on the device; plain "
         f"{padded_f32[1] * 1e3:.1f} us, bound "
         f"{bounds[2]['voxelize_padded_f32'] * 1e3:.1f} us [{card}]")
+
+    bn_timed = time_bn_relu(dev)
+    for site, (bound, kernel, composition) in bn_timed.items():
+        share = f" ({100 * bound / kernel:.1f}% of the bound)" if kernel \
+            else ""
+        log(f"phase timing: bn_relu at {site} (bf16): {us_text(kernel)} on "
+            f"the device{share}; cast + cuDNN BatchNorm + ReLU + cast "
+            f"{us_text(composition)}; bound {us_text(bound)} [{card}]")
 
     def both(kernel):
         """(ms with the wrapper, ms on the device) per call of kernel."""
@@ -4497,12 +4802,29 @@ def main(argv=None) -> int:
                   launches=long_launches
                   + sum(x["sort_merge"] for x in new_paths),
                   max_abs_err=merge_err)}
+    rows = [dict(name=name, route="cuda", **rec, ms=timed[name][0],
+                 plain_ms=timed[name][1], bound_ms=bounds[2][name],
+                 bound_by="bytes", library_ms=timed[name][2])
+            for name, rec in record.items()]
+    # bn_relu: device ms over its main sites (>= 8 M elements) of the
+    # served cells, B=8 bf16, against the composition it replaced
+    main_sites = [bn_timed[site] for site, (shape, crop)
+                  in BN_RELU_SITES.items()
+                  if math.prod(shape[:-1]) * (crop or shape[-1]) >= 8e6]
+    rows.append(dict(
+        name="bn_relu", route="cuda", source="mv3d_tpu_torch/csrc/bn_relu.cu",
+        replaces=None,
+        launches=sum(c["bn_relu"] for c in serve_counts)
+        + cmd_launches["bn_relu"] + eval_launches["bn_relu"]
+        + sum(x["bn_relu"] for x in new_paths),
+        max_abs_err=bn_err, **{key: (sum(t[i] for t in main_sites)
+                                     if all(t[i] is not None
+                                            for t in main_sites) else None)
+                               for i, key in ((1, "ms"), (2, "plain_ms"),
+                                              (0, "bound_ms"))},
+        bound_by="bytes", library_ms=None))
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
-    log(json.dumps({"kernels": [dict(
-        name=name, route="cuda", **rec, ms=timed[name][0],
-        plain_ms=timed[name][1], bound_ms=bounds[2][name],
-        bound_by="bytes", library_ms=timed[name][2])
-        for name, rec in record.items()]}))
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_relu import bn_relu as fused_bn_relu
 from ..ops.quantized import int8_conv, int8_dense, quantize_weight
 
 
@@ -303,7 +304,13 @@ COMPUTE_LAYERS = (Conv2d, ConvTranspose2d, Linear)
 
 
 def bn_relu(bn: nn.Module, x: torch.Tensor, dtype: torch.dtype):
-    """f32 BatchNorm + ReLU, cast back to the compute dtype."""
+    """f32 BatchNorm + ReLU, cast back to the compute dtype. In eval mode
+    the operator ``mv3d::bn_relu`` (one pass on the card, the same
+    composition on the CPU), whatever the grad mode, so that a traced
+    program holds it; train mode normalizes with the batch statistics."""
+    if not bn.training:
+        return fused_bn_relu(x.to(dtype), bn.weight, bn.bias,
+                             bn.running_mean, bn.running_var, bn.eps)
     return F.relu(bn(x.to(torch.float32))).to(dtype)
 
 

@@ -4,7 +4,9 @@
   * ``mv3d::voxelize_padded``  K2, :mod:`.voxelize_padded`;
   * ``mv3d::scatter_max``      K3, :mod:`.voxelize_heights`;
   * ``mv3d::stable_sort``      K4, :mod:`.sort_bitonic` (the radix kernel
-    for rows up to 65,536, radix blocks plus merge passes above that).
+    for rows up to 65,536, radix blocks plus merge passes above that);
+  * ``mv3d::bn_relu``          eval-mode BatchNorm + ReLU in one pass,
+    :mod:`.bn_relu` (the epilogue of the model's conv and dense layers).
 
 Each operator has a CUDA implementation (the kernel's ctypes launch, which
 counts its launches as before), a CPU implementation (the kernel's plain
@@ -13,9 +15,11 @@ version) and a fake one that gives the outputs' shapes and dtypes, so that
 not Python, then picks the kernel or the plain version at run time from
 the tensors' device: a program traced on the CPU and moved to the card
 launches the kernels there. Any other device raises (no implementation).
+``mv3d::bn_relu`` also has a gradient (:func:`.bn_relu.bn_relu_backward`),
+so that an eval-mode model stays differentiable.
 
-The ``*_batched`` wrappers of the kernel modules call these operators;
-importing :mod:`mv3d_tpu_torch.ops` registers them.
+The ``*_batched`` wrappers of the kernel modules and :func:`.bn_relu.bn_relu`
+call these operators; importing :mod:`mv3d_tpu_torch.ops` registers them.
 """
 
 from __future__ import annotations
@@ -24,10 +28,12 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import sort_bitonic, voxelize_heights, voxelize_padded, voxelize_sweep
+from . import (bn_relu, sort_bitonic, voxelize_heights, voxelize_padded,
+               voxelize_sweep)
 
 NAMESPACE = "mv3d"
-OPS = ("voxelize_sweep", "voxelize_padded", "scatter_max", "stable_sort")
+OPS = ("voxelize_sweep", "voxelize_padded", "scatter_max", "stable_sort",
+       "bn_relu")
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("voxelize_sweep(Tensor flat, Tensor hval, Tensor refl, "
@@ -39,6 +45,8 @@ _LIB.define("voxelize_padded(Tensor flat, Tensor hval, Tensor refl, "
 _LIB.define("scatter_max(Tensor flat, Tensor val, int n_flat) -> Tensor")
 _LIB.define("stable_sort(Tensor key, Tensor p1, Tensor p2) "
             "-> (Tensor, Tensor, Tensor)")
+_LIB.define("bn_relu(Tensor x, Tensor weight, Tensor bias, Tensor mean, "
+            "Tensor var, float eps) -> Tensor")
 
 
 def _fresh(outs, inputs: Sequence[torch.Tensor]):
@@ -71,6 +79,8 @@ _LIB.impl("scatter_max", _plain(voxelize_heights.scatter_max_plain, 2),
           "CPU")
 _LIB.impl("stable_sort", sort_bitonic.bitonic_sort_kernel, "CUDA")
 _LIB.impl("stable_sort", _plain(sort_bitonic.bitonic_sort_plain, 3), "CPU")
+_LIB.impl("bn_relu", bn_relu.bn_relu_kernel, "CUDA")
+_LIB.impl("bn_relu", _plain(bn_relu.bn_relu_plain, 5), "CPU")
 
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -109,3 +119,27 @@ def _sort_fake(key, p1, p2) -> Triple:
     return (torch.empty_like(key, memory_format=torch.contiguous_format),
             torch.empty_like(p1, memory_format=torch.contiguous_format),
             torch.empty_like(p2, memory_format=torch.contiguous_format))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::bn_relu")
+def _bn_relu_fake(x, weight, bias, mean, var, eps: float) -> torch.Tensor:
+    bn_relu.check_inputs(x, weight, bias, mean, var)
+    return torch.empty_like(x)
+
+
+def _bn_relu_setup(ctx, inputs, output) -> None:
+    x, weight, bias, mean, var, eps = inputs
+    if mean.requires_grad or var.requires_grad:
+        raise RuntimeError("mv3d::bn_relu is not differentiable with respect "
+                           "to the running statistics")
+    ctx.eps = eps
+    ctx.save_for_backward(x, weight, mean, var, output)
+
+
+def _bn_relu_backward(ctx, grad):
+    return (*bn_relu.bn_relu_backward(grad, *ctx.saved_tensors, ctx.eps),
+            None, None, None)
+
+
+torch.library.register_autograd(f"{NAMESPACE}::bn_relu", _bn_relu_backward,
+                                setup_context=_bn_relu_setup)

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_operators, check_padded_cases, check_sort,
+from chip_smoke import (BN_RELU_MODES, BN_RELU_SITES,
+                        bn_relu_program_launches, check_bn_relu,
+                        check_operators, check_padded_cases, check_sort,
                         check_sort_then_sweep, check_sweep,
                         check_sweep_cases, eager_model, eager_serving,
                         kernel_counters, make_cloud, serve_http,
@@ -256,3 +258,34 @@ def test_cpu_traced_program_launches_the_kernels_on_card(tmp_path):
     want = eager_serving(eager_model(art, dev), served.meta)(pts, num, rgb)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", list(BN_RELU_SITES))
+def test_bn_relu_kernel_at_the_served_sites(site):
+    """``mv3d::bn_relu`` at a BatchNorm site of the served cells (kitti
+    and didi2, B=8: the top and rgb stems, the split stem's cropped view,
+    stages 1 and 2, the ROI towers, the dense layers) in bf16 against
+    cast + cuDNN BatchNorm + ReLU + cast on the card: one launch, the same
+    strides, under 1e-3 of the elements apart, each by at most one bf16
+    ulp plus 8 f32 ulps of the affine's terms, which is many bf16 ulps
+    only where the terms cancel near 0 (``chip_smoke.check_bn_relu``)."""
+    check_bn_relu(_cuda(), sites={site: BN_RELU_SITES[site]}, modes={})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BN_RELU_MODES))
+def test_bn_relu_kernel_in_its_other_modes(mode):
+    """The kernel's element-at-a-time mode (NCHW, a cropped NCHW view,
+    channels-last with 5 channels), bf16 and f32, held as at the served
+    sites."""
+    check_bn_relu(_cuda(), sites={}, modes={mode: BN_RELU_MODES[mode]})
+
+
+@pytest.mark.cuda
+def test_bn_relu_launches_once_per_site_per_request(tmp_path):
+    """A small s2d2p serving program (bf16) exported and loaded on the
+    card launches the kernel once per BatchNorm site its model runs, in
+    each request (``chip_smoke.bn_relu_program_launches``)."""
+    sites, launches = bn_relu_program_launches(_cuda(), str(tmp_path))
+    assert sites > 40 and launches == 2 * sites

@@ -13,9 +13,10 @@ tests/test_torch_frozen_int8.py, on these helpers.
     plain versions' signature ops: no ``scatter_reduce`` or
     ``index_add`` (the plain sweeps and scatter-max), no ``argsort`` (the
     radix twin's digit passes; the model's own sorts are
-    ``aten.sort.stable``) and no ``searchsorted`` (the merge twin). That
-    is the CPU-side proof that no plain version is frozen into a
-    program.
+    ``aten.sort.stable``) and no ``searchsorted`` (the merge twin); it
+    holds one ``mv3d::bn_relu`` per BatchNorm site the model runs and no
+    BatchNorm. That is the CPU-side proof that no plain version is frozen
+    into a program.
   * Each artifact equals the port's eager call bit for bit, and JAX's
     exported artifact on the same weights within the tolerances of
     tests/test_torch_serving.py (mask exact, boxes3d atol 1e-3, probs
@@ -52,6 +53,7 @@ from mv3d_tpu.ops import quantized as jq
 from mv3d_tpu.serving import build_serving_fn as jax_build_serving_fn
 from mv3d_tpu.serving import export_serving as jax_export_serving
 from mv3d_tpu.serving import load_serving as jax_load_serving
+from mv3d_tpu_torch.models import backbone
 from mv3d_tpu_torch.ops import quantize as tquant
 from mv3d_tpu_torch.ops import quantized as tq
 from mv3d_tpu_torch.serving import (build_serving_fn, export_serving,
@@ -85,13 +87,17 @@ FLOAT = ("hwc", "pallas-sort", "quantized", "s2d2p")
 # the plain versions' signature ops (aten names)
 PLAIN_OPS = ("scatter_reduce", "scatter_reduce_", "index_add", "index_add_",
              "argsort", "searchsorted")
+# every served model runs in eval, so every program holds the BatchNorm +
+# ReLU epilogue as ``mv3d::bn_relu``
+BN_RELU = "mv3d.bn_relu.default"
 OPERATORS = {
-    "hwc": {"mv3d.voxelize_sweep.default"},
-    "s2d2p": {"mv3d.voxelize_padded.default"},
+    "hwc": {"mv3d.voxelize_sweep.default", BN_RELU},
+    "s2d2p": {"mv3d.voxelize_padded.default", BN_RELU},
     "pallas-sort": {"mv3d.voxelize_sweep.default",
-                    "mv3d.stable_sort.default"},
-    "quantized": {"mv3d.voxelize_sweep.default", "mv3d.stable_sort.default"},
-    "int8": {"mv3d.voxelize_sweep.default"},
+                    "mv3d.stable_sort.default", BN_RELU},
+    "quantized": {"mv3d.voxelize_sweep.default", "mv3d.stable_sort.default",
+                  BN_RELU},
+    "int8": {"mv3d.voxelize_sweep.default", BN_RELU},
 }
 
 
@@ -218,6 +224,29 @@ def check_graph(built, name):
         assert "aten._int_mm.default" in targets
 
 
+def check_bn_relu_sites(built, name, monkeypatch):
+    """One ``mv3d::bn_relu`` node per BatchNorm site the served model runs
+    (the eval-mode BatchNorm modules its eager serving call passes through
+    ``models.backbone.bn_relu``, each once) and no BatchNorm node: a
+    program traced past the operator fails the count."""
+    b = built(name)
+    sites = []
+    real = backbone.bn_relu
+
+    def record(bn, x, dtype):
+        sites.append(bn)
+        return real(bn, x, dtype)
+
+    monkeypatch.setattr(backbone, "bn_relu", record)
+    fn, _ = build_serving_fn(b.model.cfg, THRESH, b.quantized)
+    fn(b.model, *_signature_inputs(name))
+    assert sites and not any(bn.training for bn in sites)
+    assert len({id(bn) for bn in sites}) == len(sites)
+    targets = _targets(b.served.program.graph)
+    assert targets.count(BN_RELU) == len(sites)
+    assert not [t for t in targets if "batch_norm" in t]
+
+
 def check_lean(built, name):
     """No dtype checks, no casts to the dtype a tensor has, and copies of
     constants only where an op writes to them (``serving.export._lean``)."""
@@ -274,6 +303,12 @@ def check_matches_jax(built, name, monkeypatch, tmp_path):
 @pytest.mark.parametrize("name", FLOAT)
 def test_graph_holds_the_operators(built, name):
     check_graph(built, name)
+
+
+@pytest.mark.parametrize("name", FLOAT)
+def test_graph_holds_one_bn_relu_per_batchnorm_site(built, name,
+                                                    monkeypatch):
+    check_bn_relu_sites(built, name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", FLOAT)

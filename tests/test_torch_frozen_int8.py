@@ -16,7 +16,8 @@ import torch
 
 from mv3d_tpu_torch.models import backbone
 
-from test_torch_frozen import (_targets, built, check_equals_eager,  # noqa: F401
+from test_torch_frozen import (_targets, built,  # noqa: F401
+                               check_bn_relu_sites, check_equals_eager,
                                check_graph, check_lean, check_matches_jax,
                                jax_variables)
 
@@ -25,6 +26,11 @@ torch.set_num_threads(2)
 
 def test_graph_holds_the_operators(built):  # noqa: F811
     check_graph(built, "int8")
+
+
+def test_graph_holds_one_bn_relu_per_batchnorm_site(  # noqa: F811
+        built, monkeypatch):
+    check_bn_relu_sites(built, "int8", monkeypatch)
 
 
 def test_graph_is_lean(built):  # noqa: F811
