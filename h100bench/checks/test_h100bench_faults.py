@@ -15,15 +15,15 @@ import pytest
 import torch
 
 from h100bench_tiny import HERE, ROOT, tiny_cell
-from harness import compare, serve
+from harness import compare, serve_batch
 
 
 def _run(**kw):
     config, mix, limits = tiny_cell()
     # a drive whose frames hold detections at the tiny sizes, so that a
     # missing or moved answer has something to miss
-    return serve.run(config, mix, limits, seed=2 ** 31 + 7, seconds=1.0,
-                     traced=False, device="cpu", **kw)
+    return serve_batch.run(config, mix, limits, seed=2 ** 31 + 7,
+                           seconds=1.0, traced=False, device="cpu", **kw)
 
 
 def test_sound_run_is_correct():

@@ -15,7 +15,7 @@ import torch
 
 from h100bench_tiny import HERE, ROOT, tiny_cell
 from harness import guard, lidar, spec, weights
-from reference import serve as ref
+from reference import mv3d as ref
 
 
 @pytest.mark.parametrize("layout", ["serving", "hwc"])
@@ -33,7 +33,7 @@ def test_reference_equals_the_program_on_the_cpu(layout):
                            {"model": {"compute_dtype": "float32"}})
     ref_cfg = ref.config_from_dict(tree)
     entries = weights.layout(ref.network(ref_cfg).state_dict())
-    w = weights.draw(entries, 2 ** 40 + 3, "cpu")
+    w = weights.draw(entries, 2 ** 40 + 3, "cpu", ref.HEAD_STD)
     net = ref.build(ref_cfg, w, "cpu")
     model = MV3D(config_from_dict(tree), device="cpu")
     model.model.load_state_dict(w)
@@ -68,9 +68,9 @@ def test_reference_cuts_a_cloud_over_the_bucket_as_the_artifact_does():
 def test_weights_are_drawn_from_the_seed():
     cfg = ref.config_from_dict(tiny_cell()[0]["config"])
     entries = weights.layout(ref.network(cfg).state_dict())
-    a = weights.draw(entries, 2 ** 63 + 1, "cpu")
-    b = weights.draw(entries, 2 ** 63 + 1, "cpu")
-    c = weights.draw(entries, 5, "cpu")
+    a = weights.draw(entries, 2 ** 63 + 1, "cpu", ref.HEAD_STD)
+    b = weights.draw(entries, 2 ** 63 + 1, "cpu", ref.HEAD_STD)
+    c = weights.draw(entries, 5, "cpu", ref.HEAD_STD)
     kernels = [k for k, s, _ in entries if len(s) >= 2]
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a[kernels[0]], c[kernels[0]])
@@ -112,14 +112,14 @@ def _fresh(code: str) -> str:
 
 def test_a_fresh_process_holds_no_jax():
     """The reference loads nothing of the program; the harness with the
-    program's serving entry loads neither JAX nor the JAX package."""
+    family's program adapter loads neither JAX nor the JAX package."""
     got = _fresh(
         "import sys\n"
-        "from reference import serve\n"
+        "from reference import mv3d\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}"
         " & {'mv3d_tpu_torch', 'mv3d_tpu', 'jax', 'jaxlib', 'flax'}))\n"
-        "from harness import guard, serve as drv\n"
-        "drv._program()\n"
+        "from harness import guard, serve_batch, spec\n"
+        "spec.program({'family': 'mv3d'})\n"
         "print(guard.forbidden_loaded())\n")
     assert got.split("\n")[:2] == ["[]", "[]"]
 

@@ -39,7 +39,12 @@ def test_cell_pieces_are_found_by_name(cell):
     mix = spec.load_mix(w["traffic"])
     limits = spec.load_limits(cell)
     assert config["name"] == w["config"] and config["reduced"] == []
-    assert mix["kind"] == "serve_batch"
+    assert config["family"] == "mv3d" and mix["kind"] == "serve_batch"
+    found = spec.resolve(BENCH, cell)
+    assert (found.entry, found.config, found.mix, found.limits) == (
+        w, config, mix, limits)
+    assert callable(found.driver.run)
+    assert spec.reference(config).__name__ == "reference.mv3d"
     assert set(limits) == set(compare.NAMES)
     e2e = {m["name"] for m in spec.metrics_of(BENCH, cell, "end_to_end")}
     assert "setup_s" in e2e and len(e2e) >= 2
@@ -57,7 +62,7 @@ def test_config_file_is_the_preset_as_run(name):
     from mv3d_tpu_torch.config import make_config
     from mv3d_tpu_torch.serving.export import config_from_dict
 
-    from reference import serve as ref
+    from reference import mv3d as ref
     tree = spec.load_config(BENCH, name, ROOT)["config"]
     want = json.loads(json.dumps(dataclasses.asdict(make_config(name))))
     assert tree == want
@@ -69,6 +74,26 @@ def test_config_file_is_the_preset_as_run(name):
 def test_unknown_cell_names_the_cells():
     with pytest.raises(KeyError, match="kitti.serve-b8"):
         spec.cell(BENCH, "no-such-cell")
+
+
+@pytest.mark.parametrize("family", [None, "", "mv3d.twin", "../mv3d"])
+def test_a_config_without_a_family_module_names_its_file(tmp_path, family):
+    config = json.loads(open(os.path.join(HERE, "configs",
+                                          "kitti.json")).read())
+    if family is None:
+        del config["family"]
+    else:
+        config["family"] = family
+    (tmp_path / "lone.json").write_text(json.dumps(config))
+    bench = {"configs": [{"name": "lone", "file": "lone.json"}]}
+    with pytest.raises(KeyError, match="lone.json names no family"):
+        spec.load_config(bench, "lone", str(tmp_path))
+
+
+@pytest.mark.parametrize("kind", ["", "serve-batch", "harness.spec.x"])
+def test_a_kind_that_names_no_module_is_refused(kind):
+    with pytest.raises(KeyError, match="names no driver"):
+        spec.driver({"kind": kind})
 
 
 def test_merged_lays_nested_values_over():

@@ -5,7 +5,7 @@ probs (K,). The program's answer for a frame is held against the
 reference's for the same frame: its live detections (``want``) and its
 candidates (``cand``), the fusion head's decoded box and probability for
 every proposal the final NMS could be offered under another rounding
-(``reference/serve.py::candidates``). The reference computes in f32 and
+(``reference/<family>.py::candidates``). The reference computes in f32 and
 the program in bf16, so the two round differently, and a random
 network's answers move with rounding: a near-tie of the proposal layer or
 of the final NMS (threshold ``nms_thresh``: any overlap) goes the other
@@ -55,17 +55,11 @@ Answer = Tuple[np.ndarray, np.ndarray]
 class Rule(NamedTuple):
     """What the reference's post-processing decides by: the score
     threshold, the final NMS threshold and the top-view grid (``x_min``,
-    ``y_min``, ``x_div``, ``y_div``, ``xn``, ``yn``)."""
+    ``y_min``, ``x_div``, ``y_div``, ``xn``, ``yn``); the family's
+    reference gives them (``reference/<family>.py::rule``)."""
     score_threshold: float
     nms_thresh: float
     grid: Dict[str, float]
-
-
-def rule_of(cfg, score_threshold: float) -> Rule:
-    t = cfg.top
-    return Rule(float(score_threshold), float(cfg.rcnn.nms_thresh),
-                {"x_min": t.x_min, "y_min": t.y_min, "x_div": t.x_div,
-                 "y_div": t.y_div, "xn": t.xn, "yn": t.yn})
 
 
 def _arrays(a: Answer) -> Tuple[np.ndarray, np.ndarray]:

@@ -4,17 +4,18 @@ program.
 
 Set-up draws the drive (``pool_frames`` raw sweeps and camera images cut
 into batches of ``batch`` consecutive frames) and the weights (BatchNorm
-statistics calibrated on the first batch by the reference), exports the
-configuration's program at the mix's batch size (``export_serving``) and
-loads it as a serving host does (``load_serving``). The window is one
-client in a closed loop: it calls ``ServingModel.predict_batch`` on the
-next batch as soon as the last one's answers (numpy) are in hand, for
-``seconds``. An untraced run then serves ``card_requests`` more under the
-profiler, whose kernels give the card's time a frame; a traced run
-profiles ``trace_requests`` inside the window instead. Then the program
-is freed, and every answer of the run is compared with the reference's
-for its batch (``compare.py``), computed in f32 from the same frames and
-weights.
+statistics calibrated on the first batch by the reference), and hands
+them to the family's program adapter (``programs/<family>.py``), which
+freezes the configuration's program at the mix's batch size and loads it
+as a serving host does. The window is one client in a closed loop: it
+calls the served ``predict_batch`` on the next batch as soon as the last
+one's answers (numpy) are in hand, for ``seconds``. An untraced run then
+serves ``card_requests`` more under the profiler, whose kernels give the
+card's time a frame; a traced run profiles ``trace_requests`` inside the
+window instead. Then the program is freed, and every answer of the run
+is compared with the reference's for its batch (``compare.py``),
+computed at the family's check precision (``CHECK_OVERRIDES`` of
+``reference/<family>.py``) from the same frames and weights.
 """
 
 from __future__ import annotations
@@ -34,27 +35,10 @@ import torch
 from . import compare, lidar, peaks, spec, stats, trace, weights
 
 PROFILE_AFTER = 1.0 / 3.0    # share of a traced window before the profile
-# the check's reference computes in f32 (TF32 off) where the program
-# computes in bf16: a sound program reads the gap of its own rounding
-REFERENCE_OVERRIDES = {"model": {"compute_dtype": "float32"},
-                       "pipeline": {"top_view_dtype": "float32"}}
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def _reference():
-    from reference import serve as ref
-    return ref
-
-
-def _program():
-    """The system under test: the port's model and serving artifacts."""
-    from mv3d_tpu_torch.serving.export import (config_from_dict,
-                                               export_serving, load_serving)
-    from mv3d_tpu_torch.train.trainer import MV3D
-    return config_from_dict, export_serving, load_serving, MV3D
 
 
 def _steal_s() -> float:
@@ -75,8 +59,10 @@ def _sync(device: torch.device) -> None:
 
 class Inputs(NamedTuple):
     """What a run draws from its seed before the program is built: the
-    configuration tree as run, the reference's config, the drive cut into
-    batches, and the weights (BatchNorm calibrated on the first batch)."""
+    family's reference module, the configuration tree as run, the
+    reference's config, the drive cut into batches, and the weights
+    (BatchNorm calibrated on the first batch)."""
+    ref: Any
     tree: Dict[str, Any]
     ref_cfg: Any
     batch: int
@@ -94,29 +80,32 @@ def inputs(config: Dict[str, Any], mix: Dict[str, Any], seed: int, device,
     t0 = time.perf_counter() if t0 is None else t0
     phases = [] if phases is None else phases
     device = torch.device(device)
-    ref = _reference()
+    ref = spec.reference(config)
     tree = spec.run_config(config, mix)
     ref_cfg = ref.config_from_dict(tree)
     entries = weights.layout(ref.network(ref_cfg).state_dict())
     bsz, thr = int(mix["batch"]), float(mix["score_threshold"])
+    area, rgb_shape = ref.drive(ref_cfg)
     drive = lidar.frames(seed, int(mix["pool_frames"]), config["sensor"],
-                         tree["top"], mix["scene"], ref_cfg.rgb_shape)
+                         area, mix["scene"], rgb_shape)
     batches = [drive[i:i + bsz] for i in range(0, len(drive), bsz)]
     phases.append(("drive", time.perf_counter() - t0))
-    net = ref.build(ref_cfg, weights.draw(entries, seed, device), device)
+    net = ref.build(ref_cfg, weights.draw(entries, seed, device,
+                                          ref.HEAD_STD), device)
     state = ref.calibrate(net, batches[0], bsz)
     del net
-    return Inputs(tree, ref_cfg, bsz, thr, drive, batches, state)
+    return Inputs(ref, tree, ref_cfg, bsz, thr, drive, batches, state)
 
 
 def reference_answers(inp: Inputs, device, overrides=None):
     """The reference's answers for every batch of ``inp`` and its
-    candidates (``reference/serve.py::candidates``), at the configuration
-    tree with ``overrides`` laid over it (the check's reference precision,
-    :data:`REFERENCE_OVERRIDES`, by default), TF32 off. Returns (answers,
-    candidates, the comparison's rule), each list a batch's per frame."""
-    ref = _reference()
-    over = REFERENCE_OVERRIDES if overrides is None else overrides
+    candidates (``reference/<family>.py::candidates``), at the
+    configuration tree with ``overrides`` laid over it (the check's
+    reference precision, the family's ``CHECK_OVERRIDES``, by default),
+    TF32 off. Returns (answers, candidates, the comparison's rule), each
+    list a batch's per frame."""
+    ref = inp.ref
+    over = ref.CHECK_OVERRIDES if overrides is None else overrides
     cfg = ref.config_from_dict(spec.merged(inp.tree, over))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,7 +113,7 @@ def reference_answers(inp: Inputs, device, overrides=None):
     want = [ref.detect(net, b, inp.batch, inp.score_threshold)
             for b in inp.batches]
     cand = [ref.candidates(net, b, inp.batch) for b in inp.batches]
-    return want, cand, compare.rule_of(cfg, inp.score_threshold)
+    return want, cand, compare.Rule(**ref.rule(cfg, inp.score_threshold))
 
 
 def check(answers: List[Any], want, cand, rule: "compare.Rule",
@@ -163,17 +152,16 @@ def run(config: Dict[str, Any], mix: Dict[str, Any],
         wrap: Optional[Callable] = None, keep: bool = False
         ) -> Dict[str, Any]:
     """One run of the cell. ``program_overrides`` lays more configuration
-    over the program's alone (the control: the program's int8 path);
-    ``wrap(predict_batch)`` replaces the call the window drives (the
-    checks' planted faults). Returns the run's numbers: ``attempted``,
-    ``failed``, ``correct``, ``checks``, ``e2e`` (name -> value),
-    ``device``, and for a traced run ``record`` and ``breakdown``; with
-    ``keep``, also ``kept``: the inputs, each batch's first answers and
-    the reference's."""
+    over the program's alone (the control: the family's
+    ``CONTROL_OVERRIDES``); ``wrap(predict_batch)`` replaces the call the
+    window drives (the checks' planted faults). Returns the run's
+    numbers: ``attempted``, ``failed``, ``correct``, ``checks``, ``e2e``
+    (name -> value), ``device``, and for a traced run ``record`` and
+    ``breakdown``; with ``keep``, also ``kept``: the inputs, each batch's
+    first answers and the reference's."""
     t0 = time.perf_counter() if t0 is None else t0
     device = torch.device(device)
-    ref = _reference()
-    config_from_dict, export_serving, load_serving, MV3D = _program()
+    program = spec.program(config)
 
     work = tempfile.mkdtemp(prefix="h100bench_")
     try:
@@ -186,20 +174,11 @@ def run(config: Dict[str, Any], mix: Dict[str, Any],
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
         phases.append(("weights", time.perf_counter() - t0))
-        cfg = config_from_dict(spec.merged(inp.tree, program_overrides or {}))
-        model = MV3D(cfg, device=device, checkpoint_dir=work,
-                     log_dir=work)
-        model.model.load_state_dict(state)
-        phases.append(("model", time.perf_counter() - t0))
-        export_serving(model, os.path.join(work, "artifact"),
-                       batch_size=bsz, score_threshold=thr)
-        del model
-        gc.collect()
-        phases.append(("export", time.perf_counter() - t0))
-        served = load_serving(os.path.join(work, "artifact"), device=device)
-        phases.append(("load", time.perf_counter() - t0))
-        call = served.predict_batch if wrap is None else wrap(
-            served.predict_batch)
+        predict = program.served(
+            spec.merged(inp.tree, program_overrides or {}), state, bsz, thr,
+            device, work,
+            lambda name: phases.append((name, time.perf_counter() - t0)))
+        call = predict if wrap is None else wrap(predict)
         for i in range(int(mix["warmup_requests"])):
             call(batches[i % len(batches)])
         _sync(device)
@@ -250,7 +229,7 @@ def run(config: Dict[str, Any], mix: Dict[str, Any],
             card_ms = (trace.busy_s(card, trace.COMPUTE_CATS) * 1e3
                        / (bsz * len(card["requests"])))
         window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-        del served, call
+        del predict, call
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -295,7 +274,7 @@ def run(config: Dict[str, Any], mix: Dict[str, Any],
                            "answers": [first.get(i) for i in
                                        range(len(batches))]}
         if traced:
-            rec.update(_record_extras(ref, inp, device))
+            rec.update(_record_extras(inp, device))
             out["record"] = rec
             log(f"reference flops per frame {rec['flops_per_frame']!r}")
             out["breakdown"] = trace.breakdown(rec)
@@ -350,25 +329,22 @@ def _profile(call, batches, answers, lat, n: int, device):
     return prof, failed
 
 
-def _record_extras(ref, inp: Inputs, device):
+def _record_extras(inp: Inputs, device):
     """What the readers need beside the trace: the frames a request, the
     reference's FLOPs per frame at the cell's shapes, the card's peaks and
-    the voxelizer's sizes."""
+    the family's sizes (``reference/<family>.py::sizes``)."""
     from torch.utils.flop_counter import FlopCounterMode
+    ref = inp.ref
     net = ref.build(inp.ref_cfg, inp.state, device)
     counter = FlopCounterMode(display=False)
     with counter:
         ref.detect(net, inp.batches[0], inp.batch, inp.score_threshold)
     del net
-    t = inp.ref_cfg.top
-    pipe = inp.ref_cfg.pipeline
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     return {
         "frames_per_request": inp.batch,
         "flops_per_frame": counter.get_total_flops() / inp.batch,
         "peaks": peaks.of(kind),
-        "sizes": {"batch": inp.batch, "points": pipe.max_points,
-                  "xn": t.xn, "yn": t.yn, "zn": t.zn,
-                  "top_view_dtype": pipe.top_view_dtype},
+        "sizes": ref.sizes(inp.ref_cfg, inp.batch),
     }

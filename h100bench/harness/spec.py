@@ -1,24 +1,37 @@
-"""Find a cell's pieces by the names ``BENCHMARK.json`` gives them.
+"""Find a cell's pieces by the names ``BENCHMARK.json`` and its files
+give them.
 
-  * ``h100bench/configs/<config>.json``  the model configuration as run;
-  * ``h100bench/traffic/<traffic>.json`` the traffic mix's parameters;
+  * ``h100bench/configs/<config>.json``  the model configuration as run,
+    whose ``family`` names its architecture;
+  * ``h100bench/reference/<family>.py``  the family's plain reference and
+    what the harness needs to know of the family;
+  * ``h100bench/programs/<family>.py``   the family's adapter to the
+    port's entry points;
+  * ``h100bench/traffic/<traffic>.json`` the traffic mix's parameters,
+    whose ``kind`` names its driver;
+  * ``h100bench/harness/<kind>.py``      the driver of that kind of mix;
   * ``h100bench/metrics/<metric>.py``    one reader per per-layer metric;
   * ``h100bench/limits/<cell>.json``     the limits of the cell's check.
 
-A later cell, mix, configuration or metric is added as new files and
-entries; no file here names one.
+A later cell, mix, kind, configuration, architecture or metric is added
+as new files and entries; no file here names one.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib
 import importlib.util
 import json
 import os
-from typing import Any, Dict, List
+import re
+from types import ModuleType
+from typing import Any, Dict, List, NamedTuple
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(HERE)
+# a family or a kind names a module
+MODULE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
 
 def _load_json(path: str) -> Dict[str, Any]:
@@ -47,7 +60,56 @@ def config_entry(bench: Dict[str, Any], name: str) -> Dict[str, Any]:
 
 def load_config(bench: Dict[str, Any], name: str,
                 root: str = ROOT) -> Dict[str, Any]:
-    return _load_json(os.path.join(root, config_entry(bench, name)["file"]))
+    """The configuration file of ``name``; its ``family`` has to name a
+    module (a file without one is refused, naming the file)."""
+    path = config_entry(bench, name)["file"]
+    config = _load_json(os.path.join(root, path))
+    if not MODULE.match(str(config.get("family", ""))):
+        raise KeyError(f"{path} names no family: its \"family\" key has to "
+                       f"name h100bench/reference/<family>.py and "
+                       f"h100bench/programs/<family>.py")
+    return config
+
+
+def reference(config: Dict[str, Any]) -> ModuleType:
+    """The configuration's family's reference module
+    (``h100bench/reference/<family>.py``)."""
+    return importlib.import_module("reference." + config["family"])
+
+
+def program(config: Dict[str, Any]) -> ModuleType:
+    """The configuration's family's program adapter
+    (``h100bench/programs/<family>.py``)."""
+    return importlib.import_module("programs." + config["family"])
+
+
+def driver(mix: Dict[str, Any]) -> ModuleType:
+    """The driver of the mix's ``kind`` (``h100bench/harness/<kind>.py``):
+    its ``run(config, mix, limits, seed, seconds, traced, device, t0)``
+    runs the cell once."""
+    kind = str(mix.get("kind", ""))
+    if not MODULE.match(kind):
+        raise KeyError(f"the traffic mix's kind {kind!r} names no driver "
+                       f"module")
+    return importlib.import_module("harness." + kind)
+
+
+class Cell(NamedTuple):
+    """A cell's entry and the pieces it names."""
+    entry: Dict[str, Any]
+    config: Dict[str, Any]
+    mix: Dict[str, Any]
+    limits: Dict[str, float]
+    driver: ModuleType
+
+
+def resolve(bench: Dict[str, Any], name: str, root: str = ROOT,
+            here: str = HERE) -> Cell:
+    """The cell ``name`` with its configuration, mix, limits and driver."""
+    entry = cell(bench, name)
+    mix = load_mix(entry["traffic"], here)
+    return Cell(entry, load_config(bench, entry["config"], root), mix,
+                load_limits(name, here), driver(mix))
 
 
 def load_mix(name: str, here: str = HERE) -> Dict[str, Any]:

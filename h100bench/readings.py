@@ -5,21 +5,26 @@ witness.
     python3 h100bench/readings.py --workload <cell> --variant program \
         --seconds 3 --seeds 11 12 13 ... [--dump DIR]
 
-``program`` runs the cell as its run does, at its own sizes and load,
-for a short window; ``int8`` runs the control: the program's own int8
-path (``model.quant="int8"``), the nearest precision below the bf16 the
-configuration states. Both are judged against the check's reference (f32,
-TF32 off). ``witness`` builds no program: it holds against the check's
-reference the reference at the configuration's own precision (bf16,
-which the program matches bit for bit) and, as ``fused``, the same with
-each convolution's and dense layer's product left in f32 into the
-BatchNorm after it, as a kernel that fuses the BatchNorm into the
-product's epilogue would leave it: a sound change that rounds
-differently. Each seed prints one JSON line a variant with its numbers;
-with ``--dump`` each seed's answers, the reference's answers at both
-precisions, the fused witness's, and the candidates near any of them go
-to ``DIR/<cell>.<variant>.<seed>.npz``, from which
-``h100bench/limits/<cell>.json`` was set (PERF.md). Needs the card.
+The cell's pieces are found as a run finds them (``harness/spec.py``):
+its driver by the mix's kind, and the family's reference
+(``reference/<family>.py``) by the configuration's family. ``program``
+runs the cell as its run does, at its own sizes and load, for a short
+window; ``control`` runs the control: the program with the family's
+``CONTROL_OVERRIDES`` laid over its configuration (for ``mv3d`` its own
+int8 path, ``model.quant="int8"``, the nearest precision below the bf16
+the configuration states). Both are judged against the check's reference
+(the family's ``CHECK_OVERRIDES``: f32, TF32 off). ``witness`` builds no
+program: it holds against the check's reference the reference at the
+configuration's own precision (bf16) and, as ``fused``, the same under
+the family's ``fused_epilogues()`` (each convolution's and dense layer's
+product left in f32 into the BatchNorm after it, as a kernel that fuses
+the BatchNorm into the product's epilogue would leave it: a sound change
+that rounds differently). Each seed prints one JSON line a variant with
+its numbers; with ``--dump`` each seed's answers, the reference's answers
+at both precisions, the fused witness's, and the candidates near any of
+them go to ``DIR/<cell>.<variant>.<seed>.npz``, from which
+``h100bench/limits/<cell>.json`` was set (PERF.md). Needs the card and a
+cell whose driver is ``serve_batch``'s kind.
 """
 
 from __future__ import annotations
@@ -34,8 +39,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 sys.path[:0] = [HERE, ROOT]
 
-VARIANTS = {"program": None, "int8": {"model": {"quant": "int8"}},
-            "witness": None}
+VARIANTS = ("program", "control", "witness")
 
 
 NEAR_M = 3.0    # the candidates kept in a dump: this near a detection
@@ -66,43 +70,10 @@ def _save(path, **sets):
     np.savez_compressed(path, **arrays)
 
 
-def fused_epilogues():
-    """A context in which the reference's bf16 convolutions and dense
-    layers return their f32 products (bf16 inputs and weights, f32
-    accumulation, no rounding of the output)."""
-    import contextlib
-
-    import torch
-
-    from reference.mv3dref.models import backbone
-
-    def unrounded(forward):
-        def call(self, x):
-            if self.compute_dtype != torch.bfloat16:
-                return forward(self, x)
-            r = lambda t: None if t is None else t.to(torch.bfloat16).float()
-            if isinstance(self, backbone.Linear):
-                return torch.nn.functional.linear(r(x), r(self.weight),
-                                                  r(self.bias))
-            return self._conv_forward(r(x), r(self.weight), r(self.bias))
-        return call
-
-    @contextlib.contextmanager
-    def ctx():
-        kept = backbone.Conv2d.forward, backbone.Linear.forward
-        backbone.Conv2d.forward = unrounded(kept[0])
-        backbone.Linear.forward = unrounded(kept[1])
-        try:
-            yield
-        finally:
-            backbone.Conv2d.forward, backbone.Linear.forward = kept
-    return ctx()
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
-    ap.add_argument("--variant", choices=sorted(VARIANTS), required=True)
+    ap.add_argument("--variant", choices=VARIANTS, required=True)
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--dump", default=None)
@@ -110,39 +81,38 @@ def main(argv=None) -> int:
 
     import torch
 
-    from harness import serve, spec
+    from harness import spec
     if not torch.cuda.is_available():
         print("readings need the card", file=sys.stderr)
         return 2
     bench = spec.load_benchmark(ROOT)
-    cell = spec.cell(bench, args.workload)
-    config = spec.load_config(bench, cell["config"], ROOT)
-    mix = spec.load_mix(cell["traffic"])
-    limits = spec.load_limits(cell["name"])
+    cell, config, mix, limits, drv = spec.resolve(bench, args.workload)
+    ref = spec.reference(config)
     if args.dump:
         os.makedirs(args.dump, exist_ok=True)
     for seed in args.seeds:
         t = time.perf_counter()
         sets = {}
         if args.variant == "witness":
-            inp = serve.inputs(config, mix, seed, "cuda")
-            sets["got"], _, _ = serve.reference_answers(inp, "cuda",
-                                                        overrides={})
-            with fused_epilogues():
-                sets["fused"], _, _ = serve.reference_answers(
+            inp = drv.inputs(config, mix, seed, "cuda")
+            sets["got"], _, _ = drv.reference_answers(inp, "cuda",
+                                                      overrides={})
+            with ref.fused_epilogues():
+                sets["fused"], _, _ = drv.reference_answers(
                     inp, "cuda", overrides={})
             line = {}
         else:
-            res = serve.run(config, mix, limits, seed, args.seconds, False,
-                            program_overrides=VARIANTS[args.variant],
-                            keep=True)
+            over = ref.CONTROL_OVERRIDES if args.variant == "control" \
+                else None
+            res = drv.run(config, mix, limits, seed, args.seconds, False,
+                          program_overrides=over, keep=True)
             kept = res.pop("kept")
             inp, sets["got"] = kept["inputs"], kept["answers"]
             line = {"attempted": res["attempted"],
                     "correct": res["correct"]}
-        want, cand, rule = serve.reference_answers(inp, "cuda")
+        want, cand, rule = drv.reference_answers(inp, "cuda")
         for name, got in sets.items():
-            _, numbers = serve.check(got, want, cand, rule, limits)
+            _, numbers = drv.check(got, want, cand, rule, limits)
             print(json.dumps({
                 "workload": cell["name"], "variant": args.variant,
                 "answers": name, "seed": seed, **line, **numbers,
@@ -150,7 +120,7 @@ def main(argv=None) -> int:
                                             for _, p in w),
                 "run_s": time.perf_counter() - t}), flush=True)
         if args.dump:
-            sets["want16"], sets["cand16"], _ = serve.reference_answers(
+            sets["want16"], sets["cand16"], _ = drv.reference_answers(
                 inp, "cuda", overrides={})
             _save(os.path.join(args.dump, f"{cell['name']}.{args.variant}."
                                f"{seed}.npz"),

@@ -1,5 +1,8 @@
-"""The reference's served function: raw (points, rgb) frames in, per
-frame the live (boxes3d (K, 8, 3), probs (K,)) out.
+"""The ``mv3d`` family's reference: MV3D's served function, raw (points,
+rgb) frames in, per frame the live (boxes3d (K, 8, 3), probs (K,)) out,
+and what the harness needs to know of MV3D to draw, check and read a
+cell of it (the check's precision, the control, the heads' initial
+scales, the comparison's rule, the drive's shape, the readers' sizes).
 
 It restates what a served artifact promises (``mv3d_tpu_torch/serving/
 export.py``): a cloud over the point bucket is cut to ``max_points``
@@ -25,6 +28,19 @@ from .mv3dref.ops import boxes as box_ops
 from .mv3dref.ops import boxes3d as box3d_ops
 from .mv3dref.ops.proposal import batch_gather
 from .mv3dref.ops.voxelize import lidar_to_front_batch, lidar_to_top_batch
+
+
+# the check's reference computes in f32 (TF32 off) where the program
+# computes in bf16: a sound program reads the gap of its own rounding
+CHECK_OVERRIDES = {"model": {"compute_dtype": "float32"},
+                   "pipeline": {"top_view_dtype": "float32"}}
+# the control: the program's own int8 path, the precision below the bf16
+# the configuration states
+CONTROL_OVERRIDES = {"model": {"quant": "int8"}}
+# name suffix -> standard deviation of a head's last layer, as Faster
+# R-CNN's heads start (``harness/weights.py``)
+HEAD_STD = {".rpn_score.weight": 0.01, ".rpn_delta.weight": 0.01,
+            ".score.weight": 0.01, ".box_3.weight": 0.001}
 
 
 def _tuples(v):
@@ -57,6 +73,34 @@ def build(cfg: Config, weights: Dict[str, torch.Tensor], device) -> MV3DNet:
     net = network(cfg)
     net.load_state_dict(weights)
     return net.to(device).eval()
+
+
+def drive(cfg: Config) -> Tuple[Dict[str, float], Tuple[int, int, int]]:
+    """What the traffic's drive is laid out by: the area its scenes fill
+    (the top view's grid) and the camera's (H, W, 3) shape."""
+    t = cfg.top
+    return ({"x_min": t.x_min, "x_max": t.x_max, "y_min": t.y_min,
+             "y_max": t.y_max}, cfg.rgb_shape)
+
+
+def rule(cfg: Config, score_threshold: float) -> Dict[str, Any]:
+    """The fields of the check's ``harness/compare.Rule``: the score
+    threshold, the final NMS threshold and the top-view grid the final
+    NMS rounds boxes to."""
+    t = cfg.top
+    return {"score_threshold": float(score_threshold),
+            "nms_thresh": float(cfg.rcnn.nms_thresh),
+            "grid": {"x_min": t.x_min, "y_min": t.y_min, "x_div": t.x_div,
+                     "y_div": t.y_div, "xn": t.xn, "yn": t.yn}}
+
+
+def sizes(cfg: Config, batch: int) -> Dict[str, Any]:
+    """The sizes the per-layer readers take from a traced run's record
+    (``metrics/voxelize_padded_roofline.py``): the batch, the point
+    bucket, the top view's cells and its dtype."""
+    t, pipe = cfg.top, cfg.pipeline
+    return {"batch": batch, "points": pipe.max_points, "xn": t.xn,
+            "yn": t.yn, "zn": t.zn, "top_view_dtype": pipe.top_view_dtype}
 
 
 def within_budget(points: np.ndarray, max_points: int) -> np.ndarray:
@@ -188,3 +232,36 @@ def calibrate(net: MV3DNet, frames: Sequence[Tuple[np.ndarray, np.ndarray]],
         m.running_mean.copy_(mean)          # its identity statistics
         m.running_var.copy_(var)
     return {k: v.detach().cpu() for k, v in net.state_dict().items()}
+
+
+def fused_epilogues():
+    """A context in which the reference's bf16 convolutions and dense
+    layers return their f32 products (bf16 inputs and weights, f32
+    accumulation, no rounding of the output), as a kernel that fuses the
+    BatchNorm into the product's epilogue would leave them: the witness
+    of a sound change that rounds differently (``readings.py``)."""
+    import contextlib
+
+    from .mv3dref.models import backbone
+
+    def unrounded(forward):
+        def call(self, x):
+            if self.compute_dtype != torch.bfloat16:
+                return forward(self, x)
+            r = lambda t: None if t is None else t.to(torch.bfloat16).float()
+            if isinstance(self, backbone.Linear):
+                return torch.nn.functional.linear(r(x), r(self.weight),
+                                                  r(self.bias))
+            return self._conv_forward(r(x), r(self.weight), r(self.bias))
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        kept = backbone.Conv2d.forward, backbone.Linear.forward
+        backbone.Conv2d.forward = unrounded(kept[0])
+        backbone.Linear.forward = unrounded(kept[1])
+        try:
+            yield
+        finally:
+            backbone.Conv2d.forward, backbone.Linear.forward = kept
+    return ctx()

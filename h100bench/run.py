@@ -4,14 +4,16 @@
         --trace <0|1>
 
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration file
-and a traffic mix; the mix's ``kind`` names the driver of the program's
-entry point. With ``--trace 0`` the result's metrics are the cell's
-end-to-end metrics; with ``--trace 1`` the run profiles a bounded number
-of requests inside its window and reports the cell's per-layer metrics,
-each read by its own reader under ``h100bench/metrics/``, with the
-device's busy and window seconds and a breakdown. The last line of
-standard output is one JSON object; the numbers the correctness check
-compared, each beside its limit, close standard error and the line.
+and a traffic mix; the configuration's ``family`` names its reference
+and its program adapter, and the mix's ``kind`` names the driver of the
+program's entry point (``harness/spec.py``). With ``--trace 0`` the
+result's metrics are the cell's end-to-end metrics; with ``--trace 1``
+the run profiles a bounded number of requests inside its window and
+reports the cell's per-layer metrics, each read by its own reader under
+``h100bench/metrics/``, with the device's busy and window seconds and a
+breakdown. The last line of standard output is one JSON object; the
+numbers the correctness check compared, each beside its limit, close
+standard error and the line.
 
 The run needs the card: without CUDA, or with fewer cards than the cell
 asks for, it exits non-zero and prints no result. It also refuses to
@@ -38,8 +40,6 @@ for var, sub in (("TRITON_CACHE_DIR", "triton"),
     os.environ.setdefault(var, os.path.join(ROOT, ".h100bench_cache", sub))
 sys.path[:0] = [HERE, ROOT]
 
-DRIVERS = {"serve_batch": "harness.serve"}
-
 
 def power_limit() -> str:
     try:
@@ -59,25 +59,21 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    import importlib
-
     import torch
 
     from harness import guard, spec
 
     bench = spec.load_benchmark(ROOT)
-    cell = spec.cell(bench, args.workload)
+    found = spec.resolve(bench, args.workload)
+    cell = found.entry
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if cards < cell["chips"]:
         print(f"the cell {cell['name']} needs {cell['chips']} CUDA "
               f"card(s); this machine has {cards}", file=sys.stderr)
         return 2
-    config = spec.load_config(bench, cell["config"], ROOT)
-    mix = spec.load_mix(cell["traffic"])
-    limits = spec.load_limits(cell["name"])
-    driver = importlib.import_module(DRIVERS[mix["kind"]])
-    res = driver.run(config, mix, limits, args.seed, args.seconds,
-                     bool(args.trace), device="cuda", t0=T0)
+    res = found.driver.run(found.config, found.mix, found.limits, args.seed,
+                           args.seconds, bool(args.trace), device="cuda",
+                           t0=T0)
 
     kind = torch.cuda.get_device_name(0)
     device = {"platform": "gpu", "kind": kind, "count": cell["chips"],
