@@ -57,10 +57,10 @@ each of their hand-written kernels against its plain PyTorch version:
 Phases:
 
   1. require CUDA; print the card's name and power limit;
-  2. build the six kernels from this checkout's sources (one nvcc each,
+  2. build the seven kernels from this checkout's sources (one nvcc each,
      in parallel); print ptxas's registers, spills and shared memory of
-     the K1, K2, K4, merge and bn_relu kernels, K1's tile plan and how
-     many radix clusters the card holds at once
+     the K1, K2, K4, merge, bn_relu and nms_topk kernels, K1's tile plan
+     and how many radix clusters the card holds at once
      (cudaOccupancyMaxActiveClusters);
      ``precision``: a fresh process that sets nothing builds
      ``MV3D(device="cuda")`` and finds cuDNN's and cuBLAS's TF32 switches
@@ -79,7 +79,12 @@ Phases:
      points); ``mv3d::bn_relu`` at the served cells' BatchNorm sites and
      element by element against cast + cuDNN BatchNorm + ReLU + cast, under
      1e-3 of the elements apart and each by no more than rounding allows
-     (``check_bn_relu``); then, on the card, the s2d2p
+     (``check_bn_relu``); ``mv3d::nms_topk`` at AVOD's call sizes at B=8
+     (89,600 boxes to 300 and to 1,024 at IoU 0.8, 300 to 100 at 0.01)
+     against its plain twin on the CPU, kept positions, counts and visits
+     identical, one launch a call, and at the final call's sizes
+     ``ops.nms.nms_topk`` against the stock ``greedy_nms``
+     (``check_nms_topk``); then, on the card, the s2d2p
      pair and the s2d2 view equal the folded hwc view bit for bit (K2
      against K1) and their
      unfolded occupancy the hwc occupancy; the front view
@@ -196,7 +201,12 @@ Phases:
      CPU-traced program's against the card-traced one's, all bit for bit;
      then the program beside the eager model in closed-loop windows at
      B=1 and B=8, in bf16 and int8;
-     export and load times and ``.pt2`` sizes printed;
+     export and load times and ``.pt2`` sizes printed; ``avod``
+     (``avod_phase``): AVOD at ``avod_cars_config()`` exported at B=8
+     and loaded as its benchmark cell serves it, two requests of 8 whole
+     sweeps, answers and counters bit-equal to the eager serving
+     function's, ``nms_topk`` twice, K1 once and ``bn_relu`` once per
+     BatchNorm site a request, no other kernel;
   12. ``render`` (``render_phase``): ``cli.viewer`` over phase 6's
      velodyne scans, ``cli.render`` in gif and avi over phase 7's
      preprocess dump, the ``viz3d`` renderers; matplotlib never imported;
@@ -264,7 +274,8 @@ sharded steps, the single-frame call with the host plane and the learning
 gate's steps, K4 the HTTP requests, the didi and int8 "pallas-sort"
 requests, the sharded "pallas-sort" inference and the frozen programs'
 requests, the merge the uncropped requests in process and through the
-frozen program); the last is
+frozen program, nms_topk the NMS checks and the AVOD requests); the
+last is
 ``{"ok": true,
 "device": {...}}``. Checkpoints, serving artifacts, logs and the KITTI
 directory go to ``checkpoint/chip_smoke`` and ``log/chip_smoke`` in the
@@ -4261,6 +4272,172 @@ def render_phase(data_dir, pre_dir, work_dir, card):
     return seconds
 
 
+# AVOD's two NMS calls as the served cell makes them (``avod_cars_config``,
+# B=8): name -> (boxes a frame, kept at most, IoU threshold, offset); the
+# proposal call also at 1,024 kept, the paper's training value
+NMS_CASES = {"proposal": (89600, 300, 0.8, 0.0),
+             "proposal, 1,024 kept": (89600, 1024, 0.8, 0.0),
+             "final": (300, 100, 0.01, 1.0)}
+NMS_BATCH = 8
+
+
+def nms_case(gen, cfg, b, k, offset):
+    """(boxes (b, k, 4), scores (b, k), valid (b, k)) on the CPU: AVOD's
+    first ``k`` anchors' BEV boxes in metres, moved at random (top-view
+    pixel boxes where ``offset`` is 1), scores on a grid of 4,096 levels
+    (so ties occur), 60% of them invalid."""
+    import torch
+    from mv3d_tpu_torch.ops import boxes3d as box3d_ops
+    from mv3d_tpu_torch.ops.anchors import avod_anchors
+    a = torch.from_numpy(avod_anchors(cfg)[0])[:k][None].repeat(b, 1, 1)
+    a[..., :2] += torch.randn(a[..., :2].shape, generator=gen) * 0.3
+    boxes = box3d_ops.anchor_bev_boxes(a)
+    if offset:
+        boxes = torch.floor(boxes * 10.0)
+    scores = torch.randint(0, 4096, (b, k), generator=gen).float() / 4096
+    return boxes, scores, torch.rand(b, k, generator=gen) < 0.4
+
+
+def check_nms_topk(dev, card):
+    """``mv3d::nms_topk`` on the card at AVOD's call sizes (``NMS_CASES``,
+    B=8) against its plain twin (``ops.nms.nms_sorted_plain``, on the CPU)
+    on the same stably sorted boxes: kept positions, counts and visits
+    identical, one launch a call whatever ``max_out``; at the final call's
+    sizes, where the stock ``greedy_nms`` fits, ``ops.nms.nms_topk``'s
+    picks are ``greedy_nms``'s. Times the served proposal call: the kernel
+    with its wrapper and alone on the device, the plain twin, and the
+    bound (20 bytes a box read, 4 a kept position written, at the HBM
+    rate); ``greedy_nms`` at the final call's sizes. Returns the
+    ``kernels`` row's timing fields and the launches of the checked
+    calls."""
+    import torch
+    from mv3d_tpu_torch import avod_cars_config
+    from mv3d_tpu_torch.ops import nms as nms_ops
+    from mv3d_tpu_torch.ops.nms_topk import nms_topk_kernel
+    cfg = avod_cars_config()
+    gen = torch.Generator().manual_seed(20)
+    launches, row = 0, {}
+
+    def once(fn, label):
+        """``fn()``, which has to launch the kernel exactly once."""
+        nonlocal launches
+        before = nms_topk_kernel.launches
+        out = fn()
+        if nms_topk_kernel.launches != before + 1:
+            raise AssertionError(f"nms_topk {label}: "
+                                 f"{nms_topk_kernel.launches - before} "
+                                 f"launches, expected 1")
+        launches += 1
+        return out
+
+    for name, (k, max_out, thr, off) in NMS_CASES.items():
+        boxes, scores, valid = nms_case(gen, cfg, NMS_BATCH, k, off)
+        live = torch.where(valid, scores, -torch.inf)
+        s, order = torch.sort(live, dim=1, descending=True, stable=True)
+        b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+        b, s = b.contiguous(), s.contiguous()
+        bd, sd = b.to(dev), s.to(dev)
+        got = once(lambda: nms_topk_kernel(bd, sd, max_out, thr, off), name)
+        want = nms_ops.nms_sorted_plain(b, s, max_out, thr, off)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"nms_topk {name}: the kernel's picks "
+                                 f"differ from its plain twin's")
+        note = ""
+        if k * k * NMS_BATCH <= 2 ** 24:
+            args = (boxes.to(dev), scores.to(dev), valid.to(dev), thr,
+                    max_out)
+            gi, gm = nms_ops.greedy_nms(*args)
+            ti, tm, _ = once(lambda: nms_ops.nms_topk(*args, off), name)
+            if not (torch.equal(gm, tm) and torch.equal(gi[gm], ti[tm])):
+                raise AssertionError(f"nms_topk {name}: picks differ from "
+                                     f"greedy_nms's")
+            greedy_us = cuda_ms(lambda: nms_ops.greedy_nms(*args), 5) * 1e3
+            note = (f"; ops.nms.nms_topk picks greedy_nms's; greedy_nms "
+                    f"{greedy_us:.1f} us a call [{card}]")
+        log(f"phase kernel-vs-plain: nms_topk {name} B={NMS_BATCH} K={k} "
+            f"-> {max_out} at IoU {thr}, offset {off}: one launch, kept "
+            f"{got[1].tolist()}, visited {got[2].tolist()}, equal to the "
+            f"plain twin's to the index{note}")
+        if name == "proposal":
+            def kernel():
+                return nms_topk_kernel(bd, sd, max_out, thr, off)
+
+            row = dict(ms=cuda_ms(kernel),
+                       plain_ms=cuda_ms(lambda: nms_ops.nms_sorted_plain(
+                           b, s, max_out, thr, off), 3),
+                       bound_ms=NMS_BATCH * (k * 20 + max_out * 4)
+                       / HBM_BYTES_PER_S * 1e3)
+            log(f"phase timing: nms_topk proposal B={NMS_BATCH} K={k} -> "
+                f"{max_out}: kernel {row['ms'] * 1e3:.1f} us with the "
+                f"wrapper, {us_text(device_ms(kernel))} on the device; "
+                f"plain twin (on the CPU) {row['plain_ms'] * 1e3:.1f} us; "
+                f"bound {row['bound_ms'] * 1e3:.2f} us [{card}]")
+        del bd, sd
+    return row, launches
+
+
+def avod_phase(rng, dev, work_dir, counters, card):
+    """AVOD served as its benchmark cell serves it: ``avod_cars_config()``
+    at full width, exported at B=8 and loaded (``export_serving``,
+    ``load_serving``); two requests of 8 whole sweeps of 120,000 points
+    (in the 131,072-point bucket) and 360 x 1200 images. The frozen
+    program's answers and counters equal
+    the eager serving function's bit for bit; with every kernel's count
+    set to 0 just before and read just after, a request launches
+    ``nms_topk`` twice (proposal and final NMS), ``voxelize_sweep`` (K1)
+    once, ``bn_relu`` once per BatchNorm site (both pyramids' convs and
+    transposed convs, the RPN's bottlenecks) and nothing else. Returns the
+    counts over both requests, ``nms_topk`` among them."""
+    import numpy as np
+    import torch
+    from mv3d_tpu_torch import avod_cars_config
+    from mv3d_tpu_torch.models.backbone import BatchNorm
+    from mv3d_tpu_torch.ops.nms_topk import nms_topk_kernel
+    from mv3d_tpu_torch.serving import export_serving, load_serving
+    from mv3d_tpu_torch.train.trainer import MV3D
+    cfg = avod_cars_config()
+    counters = {**counters, "nms_topk": nms_topk_kernel}
+    model = MV3D(cfg, device=dev, seed=0)
+    sites = sum(isinstance(m, BatchNorm) for m in model.model.modules())
+    t0 = time.time()
+    art = export_serving(model, os.path.join(work_dir, "avod"),
+                         batch_size=8, score_threshold=THRESH)
+    export_s = time.time() - t0
+    served = load_serving(art, device=dev)
+    n, bucket = min(120000, cfg.pipeline.max_points), cfg.pipeline.max_points
+    requests = [(np.pad(make_cloud(rng, 8, n, cfg, tricky=False),
+                        ((0, 0), (0, bucket - n), (0, 0))),
+                 np.full(8, n, np.int32),
+                 (rng.rand(8, *cfg.rgb_shape) * 255).astype(np.float32))
+                for _ in range(2)]
+    eager = eager_serving(model, served.meta)
+    total = {k: 0 for k in counters}
+    live = []
+    for i, req in enumerate(requests):
+        want = eager(*req)
+        got = run_counted(lambda: served(*req), counters,
+                          {"nms_topk": 2, "voxelize_sweep": 1,
+                           "bn_relu": sites}, f"avod request {i}", total)
+        for name, g, w in zip(served.meta["output_names"], got, want):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"avod request {i}: the frozen "
+                                     f"program's {name} differ from the "
+                                     f"eager serving function's")
+        live.append(int(got[2].sum()))
+    log(f"phase avod: avod_cars_config() at B=8 "
+        f"({model.model.anchors.shape[0]} anchors, "
+        f"{cfg.rpn.nms_post_topn} proposals), exported in {export_s:.1f} s; "
+        f"2 requests of 8 x {n} points: frozen answers and counters "
+        f"bit-equal to eager, launches a request nms_topk 2, "
+        f"voxelize_sweep 1, bn_relu {sites} (its BatchNorm sites), no "
+        f"other kernel; live detections {live}; the last request's "
+        f"non-empty anchors {got[3][:, 0].tolist()} and boxes the proposal "
+        f"NMS visited {got[3][:, 1].tolist()} a frame [{card}]")
+    del model, served, eager
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -4283,6 +4460,7 @@ def main(argv=None) -> int:
     from mv3d_tpu_torch import kitti_config, serving_config
     from mv3d_tpu_torch.ops import bn_relu as fused_bn
     from mv3d_tpu_torch.ops import cuda_build
+    from mv3d_tpu_torch.ops import nms_topk
     from mv3d_tpu_torch.ops import sort_bitonic as sb
     from mv3d_tpu_torch.ops import voxelize as vox
     from mv3d_tpu_torch.ops import voxelize_heights as vh
@@ -4311,14 +4489,15 @@ def main(argv=None) -> int:
         shutil.rmtree(d, ignore_errors=True)
     counters = kernel_counters()
 
-    # -- 2. build the six kernels, one nvcc each, in parallel -------------
+    # -- 2. build the seven kernels, one nvcc each, in parallel -----------
     t0 = time.time()
     cuda_build.build_libraries(cuda_build.SOURCES)
     for load in (sweep._library, vp._library, vh._library,
-                 sb._radix_library, sb._merge_library, fused_bn._library):
+                 sb._radix_library, sb._merge_library, fused_bn._library,
+                 nms_topk._library):
         load()
     log(f"phase build: voxelize_sweep, voxelize_padded, voxelize_heights, "
-        f"sort_radix, sort_merge and bn_relu built in "
+        f"sort_radix, sort_merge, bn_relu and nms_topk built in "
         f"{time.time() - t0:.2f} s")
     radix = sb._radix_library()
     tile, n_tiles, smem = sweep.tile_plan(2 * n_cells, zn)
@@ -4340,7 +4519,10 @@ def main(argv=None) -> int:
              "threads"),
             (fused_bn.SOURCE, "mv3d_bn_relu_kernel: 256 threads, one "
              "wave of blocks (as many as occupancy allows on each SM), 8 B "
-             "of dynamic shared memory a channel")):
+             "of dynamic shared memory a channel"),
+            (nms_topk.SOURCE, f"nms_topk: one block a frame, "
+             f"{nms_topk._library().mv3d_nms_topk_smem(300)} B of dynamic "
+             f"shared memory at 300 kept")):
         log(f"phase build: ptxas, {os.path.basename(src)}: "
             + "; ".join(cuda_build.ptxas_report(src)) + f"; {note}")
 
@@ -4494,6 +4676,7 @@ def main(argv=None) -> int:
     check_operators(args, hargs, (pflat, pval, prefl), n_sc)
     apart = check_bn_relu(dev)
     bn_err = max(v[3] for v in apart.values())
+    nms_timed, nms_launches = check_nms_topk(dev, card)
     log("phase kernel-vs-plain: bn_relu at the served cells' sites (bf16) "
         "and element by element (bf16, f32) against cast + cuDNN BatchNorm "
         "+ ReLU + cast on the card, one launch each; (elements, largest "
@@ -4601,6 +4784,11 @@ def main(argv=None) -> int:
         np.random.RandomState(14), serve_cfg, dev,
         os.path.join(work_dirs[0], "frozen"), counters, card, artifacts,
         opts.profile)
+
+    started("avod")
+    avod_launches = avod_phase(np.random.RandomState(15), dev,
+                               os.path.join(work_dirs[0], "avod"), counters,
+                               card)
 
     started("render")
     # -- 12. the renderers and the render and viewer commands -------------
@@ -4763,7 +4951,7 @@ def main(argv=None) -> int:
     tracking_phase(dev, card)
     new_paths = [option_launches, int8_launches, parallel_launches,
                  single_frame_launches, cost_launches, learning_launches,
-                 frozen_launches]
+                 frozen_launches, avod_launches]
     for d in work_dirs:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -4823,6 +5011,12 @@ def main(argv=None) -> int:
                                for i, key in ((1, "ms"), (2, "plain_ms"),
                                               (0, "bound_ms"))},
         bound_by="bytes", library_ms=None))
+    # nms_topk: the served proposal call (B=8, 89,600 boxes, 300 kept);
+    # "plain" is its twin's loop on the CPU
+    rows.append(dict(
+        name="nms_topk", route="cuda",
+        source="mv3d_tpu_torch/csrc/nms_topk.cu", replaces=None, launches=nms_launches + avod_launches["nms_topk"],
+        max_abs_err=0.0, **nms_timed, bound_by="bytes", library_ms=None))
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -31,4 +31,5 @@ the port does not write itself, imported when called: the JPEG frames of
 camera-image resize.
 """
 
-from .config import Config, kitti_config, serving_config  # noqa: F401
+from .config import (Config, avod_cars_config, kitti_config,  # noqa: F401
+                     serving_config)

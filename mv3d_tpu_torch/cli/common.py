@@ -22,9 +22,11 @@ def add_config_args(ap: argparse.ArgumentParser) -> None:
                          "0.5")
 
 
-def resolve_config(args: argparse.Namespace):
+def resolve_config(args: argparse.Namespace, base=None):
+    """The preset ``--dataset`` names (or ``base``) with ``--config`` and
+    ``--set`` laid over it."""
     from ..config import config_from_file, config_from_list, make_config
-    cfg = make_config(args.dataset)
+    cfg = make_config(args.dataset) if base is None else base
     if args.config:
         cfg = config_from_file(cfg, args.config)
     for k, v in args.set_kv:

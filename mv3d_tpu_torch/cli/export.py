@@ -9,6 +9,8 @@ meta, config):
     python -m mv3d_tpu_torch.cli.export -n mytag --out artifacts/mv3d \\
         --batch-size 8 --platforms cuda,cpu
 
+``--arch avod`` exports AVOD (``config.avod_cars_config``) instead.
+
 ``--platforms`` names the devices the artifact may be served on (default:
 the export device). The kernels are operators that the dispatcher picks
 by device, so an artifact exported with ``--device cpu --platforms
@@ -23,7 +25,7 @@ import argparse
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
-        description="Export a frozen MV3D serving artifact "
+        description="Export a frozen MV3D or AVOD serving artifact "
                     "(torch.export program, weights, meta, config)")
     ap.add_argument("-n", "--tag", default="unknown_tag")
     ap.add_argument("--checkpoint-dir", default="checkpoint")
@@ -41,6 +43,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the model is built and the program "
                          "traced (cuda, or cpu)")
+    ap.add_argument("--arch", default="mv3d", choices=["mv3d", "avod"],
+                    help="the detector: MV3D at --dataset's preset, or "
+                         "AVOD's cars preset (config.avod_cars_config)")
     from .common import add_config_args
     add_config_args(ap)
     return ap.parse_args(argv)
@@ -48,8 +53,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    from ..config import avod_cars_config
     from .common import resolve_config
-    cfg = resolve_config(args)
+    cfg = resolve_config(args, avod_cars_config()
+                         if args.arch == "avod" else None)
 
     from ..serving import export_serving
     from ..train.trainer import MV3D, Predictor

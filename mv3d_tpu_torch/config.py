@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, ClassVar, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -201,6 +201,10 @@ class ModelConfig:
     rgb_basenet: str = "resnet"                 # "resnet" | "vgg"
     backbone_block: str = "bottleneck"          # "bottleneck" | "basic"
     backbone_repetitions: Tuple[int, ...] = (3, 4)   # stride 4*2^(len-1)
+    # the detector family the model builds: "mv3d" (MV3DNet) here, "avod"
+    # in AvodModelConfig (models/avod_net.AVODNet). A class constant, not a
+    # field, so MV3D's configuration trees and artifacts keep their form
+    arch: ClassVar[str] = "mv3d"
 
     def pool_stride(self, view: str) -> int:
         """Effective feature stride ROI pooling sees for a view."""
@@ -307,6 +311,47 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class AvodModelConfig(ModelConfig):
+    """The model of an :class:`AvodConfig`: ``arch`` is "avod"; AVOD reads
+    ``num_class``, ``compute_dtype`` and ``quant`` of the fields."""
+    arch: ClassVar[str] = "avod"
+
+
+@dataclass(frozen=True)
+class AvodSettings:
+    """AVOD's settings (Ku et al., "Joint 3D Proposal Generation and
+    Object Detection from View Aggregation", IROS 2018, arXiv:1712.02294;
+    github.com/kujason/avod ``avod/configs/avod_cars_example.config``),
+    the ``avod`` field of an :class:`AvodConfig`. The BEV grid is
+    ``Config.top``
+    (zn height slices over [z_min, z_max] above the sensor, the density
+    channel, no intensity), the image ``Config.rgb_shape``, the proposal
+    NMS ``rpn.nms_thresh`` keeping ``rpn.nms_post_topn`` and the final NMS
+    ``rcnn.nms_thresh``; lengths in metres, lidar frame (x forward, y
+    left, z up)."""
+    # (convs, channels) of the four VGG encoder blocks of both pyramids;
+    # the decoder fuses back to the first block's channels
+    vgg_conv: Tuple[Tuple[int, int], ...] = ((2, 32), (2, 64), (3, 128),
+                                             (3, 256))
+    density_log_base: float = 16.0    # min(1, log(N + 1) / log(16))
+    ground_z: float = -1.73           # a flat ground plane, sensor frame
+    # the image the KITTI calibration projects into: projected boxes are
+    # normalised by it, so the network's image may have another size
+    calib_image_shape: Tuple[int, int] = (375, 1242)
+    anchor_stride: float = 0.5
+    # (length, width, height) of each anchor size, and the rotations
+    # (degrees) each takes
+    anchor_sizes: Tuple[Tuple[float, float, float], ...] = (
+        (3.514, 1.581, 1.511), (4.236, 1.653, 1.547))
+    anchor_rotations: Tuple[float, ...] = (0.0, 90.0)
+    rpn_crop: int = 3                 # the RPN's crops of each view
+    rpn_fc: Tuple[int, ...] = (256, 256)
+    rcnn_crop: int = 7                # the second stage's crops
+    rcnn_fc: Tuple[int, ...] = (2048, 2048, 2048)
+    final_topn: int = 100             # detections a frame, at most
+
+
+@dataclass(frozen=True)
 class Config:
     dataset_type: str = "kitti"        # 'kitti' | 'didi' | 'didi2' | 'test'
     top: TopGrid = field(default_factory=TopGrid)
@@ -399,6 +444,81 @@ def didi2_config(**overrides: Any) -> Config:
                           image_width=1368, image_height=1096,
                           image_crop_top=400, image_crop_bottom=100),
                    **overrides)
+
+
+@dataclass(frozen=True)
+class AvodConfig(Config):
+    """A configuration of AVOD (``model.arch == "avod"``): the tree of
+    :class:`Config` (the BEV grid, the image, the RPN's and the final NMS,
+    the pipeline) with :class:`AvodModelConfig` and AVOD's own settings.
+    A class of the port alone: the JAX package has no AVOD.
+
+    AVOD reads of MV3D's tree only ``dataset_type`` (the calibration),
+    ``top``, ``pipeline`` (but ``max_gt`` and ``detect_classes``), the
+    image's size and crop, ``rpn.nms_thresh`` and ``rpn.nms_post_topn``,
+    ``rcnn.nms_thresh`` and ``rcnn.score_threshold``, and ``model.num_class``,
+    ``compute_dtype`` and ``quant``. The fields in ``UNREAD`` have to keep
+    their defaults (:meth:`unread_changed`; ``AVODNet`` refuses the rest),
+    so a setting AVOD would ignore cannot be made."""
+    model: ModelConfig = field(default_factory=AvodModelConfig)
+    avod: AvodSettings = field(default_factory=AvodSettings)
+
+    UNREAD: ClassVar[Tuple[str, ...]] = (
+        "front", "train", "tracklet_gt_scale",
+        "model.bases", "model.rpn_stride", "model.rcnn_stride",
+        "model.rgb_stride", "model.front_stride", "model.roi_pool_size",
+        "model.use_front", "model.use_top_only", "model.use_handcraft_fusion",
+        "model.use_learnable_fusion", "model.use_siamese_fusion",
+        "model.roi_enlarge_ratio", "model.high_score_threshold",
+        "model.box3d_z_min", "model.box3d_z_max", "model.upsample_features",
+        "model.stem_space_to_depth", "model.roi_align_impl",
+        "model.rgb_basenet", "model.backbone_block",
+        "model.backbone_repetitions",
+        "rpn.batch_size", "rpn.fg_fraction", "rpn.fg_thresh_lo",
+        "rpn.bg_thresh_hi", "rpn.nms_min_size", "rpn.nms_pre_topn",
+        "rcnn.batch_size", "rcnn.fg_fraction", "rcnn.fg_thresh_lo",
+        "rcnn.bg_thresh_hi", "rcnn.bg_thresh_lo",
+        "pipeline.max_gt", "pipeline.detect_classes")
+
+    def unread_changed(self) -> List[str]:
+        """The fields of ``UNREAD`` that differ from their defaults."""
+        default = AvodConfig()
+
+        def get(cfg, key):
+            for part in key.split("."):
+                cfg = getattr(cfg, part)
+            return cfg
+
+        return [k for k in self.UNREAD if get(self, k) != get(default, k)]
+
+
+def avod_cars_config(**overrides: Any) -> AvodConfig:
+    """AVOD's cars configuration at its published widths
+    (``avod_cars_example.config``): a 700 x 800 BEV at 0.1 m over x 0-70 m
+    and y -40-40 m, five 0.5 m height slices from 0.2 m below to 2.3 m
+    above a flat ground at the sensor's -1.73 m, and density; a 360 x 1200
+    image; VGG pyramids of 32/64/128/256 channels decoded to 32 at full
+    resolution; 89,600 anchors (0.5 m stride, 2 sizes x 2 rotations), 3 x 3
+    RPN crops into fc6/fc7 of 256, proposal NMS at 0.8 keeping 300 (the
+    paper's section III-C keeps 1,024 in training and 300 at inference for
+    cars; the example config's ``rpn_test_nms_size``); 7 x 7 crops into
+    three FC layers of 2,048 (``box_4ca``), final NMS at 0.01 keeping 100.
+    Served as the port serves: bf16 compute, the ``hwc`` view from the
+    fused sweep (K1) in bf16, a bucket of 131,072 points, which
+    holds a whole 64-beam sweep. What the paper does not give is listed in
+    ``h100bench/configs/avod_cars.json`` under ``assumed``."""
+    top = TopGrid(x_min=0.0, x_max=70.0, y_min=-40.0, y_max=40.0,
+                  z_min=-1.93, z_max=0.57, x_div=0.1, y_div=0.1, z_div=0.5)
+    base = AvodConfig(dataset_type="kitti", top=top,
+                      image_width=1200, image_height=360)
+    kw = dict(rpn=replace(base.rpn, nms_thresh=0.8, nms_post_topn=300),
+              rcnn=replace(base.rcnn, nms_thresh=0.01),
+              pipeline=replace(base.pipeline, max_points=131072,
+                               host_aux_channels=False,
+                               use_pallas_fused=True,
+                               top_view_dtype="bfloat16"))
+    kw.update(overrides)
+    return replace(base, **kw)
 
 
 _PRESETS = {"kitti": kitti_config, "didi": didi_config, "didi2": didi2_config}

@@ -81,9 +81,9 @@ def avg_pool_same(x: torch.Tensor, kernel: int = 2,
 
 
 class _Quantizable:
-    """``quant="int8"``: the eval-mode forward takes int8 products (set on
-    bias-free layers only); ``group``: the process group over which the
-    int8 activation scale is global.
+    """``quant="int8"``: the eval-mode forward takes int8 products (a
+    bias is added to the dequantized product); ``group``: the process
+    group over which the int8 activation scale is global.
 
     The int8 weight and its scales are quantized once and kept while the
     weight stays the same tensor at the same version: an optimizer step,
@@ -101,21 +101,27 @@ class _Quantizable:
     def int8(self) -> bool:
         return self.quant == "int8" and not self.training
 
+    def int8_layout(self, w):
+        """The weight as the int8 product takes it (out channels first)."""
+        return w
+
     def quantized_weight(self):
-        """``quantize_weight(self.weight)``, cached (see the class)."""
+        """``quantize_weight(self.int8_layout(self.weight))``, cached (see
+        the class)."""
         w = self.weight
         if torch.compiler.is_compiling():
             kept = self._qweight
-            return quantize_weight(w) if kept is None else kept[2]
+            return (quantize_weight(self.int8_layout(w)) if kept is None
+                    else kept[2])
         if w.is_inference():     # no version counter to watch
-            return quantize_weight(w)
+            return quantize_weight(self.int8_layout(w))
         kept = self._qweight
         if (kept is None or kept[0].data_ptr() != w.data_ptr()
                 or kept[1] != w._version):
             # the detached view keeps the weight's storage, so its address
             # cannot be reused while the entry stands
             self._qweight = kept = (w.detach(), w._version,
-                                    quantize_weight(w))
+                                    quantize_weight(self.int8_layout(w)))
         return kept[2]
 
     def train(self, mode: bool = True):
@@ -184,10 +190,11 @@ class Linear(_Quantizable, nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        if self.int8():
-            return int8_dense(x, self.weight, dt, self.group,
-                              self.quantized_weight())
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.int8():
+            y = int8_dense(x, self.weight, dt, self.group,
+                           self.quantized_weight())
+            return y if bias is None else y + bias
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 

@@ -17,6 +17,7 @@ count occupancy. (A conv or avg-pool would run in TF32 on CUDA, whose
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -106,6 +107,53 @@ def anchor_setup(cfg: Config = _default_cfg) -> Tuple[np.ndarray, np.ndarray]:
                               cfg.top.shape[:2], feat)
     inside = np.ones(len(anchors), dtype=bool)
     return anchors, inside
+
+
+def avod_anchors(cfg: Config) -> Tuple[np.ndarray, np.ndarray, int,
+                                        Tuple[int, int]]:
+    """AVOD's 3D anchor grid over the BEV (``cfg.avod``): centres every
+    ``anchor_stride`` metres from the grid's far edge (x = x_max, row 0) and
+    left edge (y = y_max, column 0), each of ``anchor_sizes`` at each of
+    ``anchor_rotations``, standing on the ground plane. Returns (anchors
+    (A, 6) f32 as (cx, cy, z_bottom, dx, dy, dz), axis-aligned, in the
+    order of :func:`non_empty_anchor_mask_structured`: grid-major, size
+    then rotation minor; the footprints as its integer bases (x1, y1, x2,
+    y2) in BEV cells about a grid point: the cells whose centres the
+    footprint holds; the stride in cells; the grid's (rows, cols)).
+    Rotation 0 lays an anchor's length along y (AVOD's camera x), 90 along
+    x."""
+    t, a = cfg.top, cfg.avod
+    if t.x_div != t.y_div:
+        raise ValueError("AVOD's anchor grid needs square BEV cells")
+    stride = a.anchor_stride / t.x_div
+    if abs(stride - round(stride)) > 1e-6:
+        raise ValueError(f"anchor_stride {a.anchor_stride} is not a whole "
+                         f"number of {t.x_div} m cells")
+    stride = int(round(stride))
+    gh = int(round((t.x_max - t.x_min) / a.anchor_stride))
+    gw = int(round((t.y_max - t.y_min) / a.anchor_stride))
+    dims, bases = [], []
+    for length, width, height in a.anchor_sizes:
+        for rot in a.anchor_rotations:
+            if rot % 180.0 == 0.0:
+                dx, dy = width, length
+            elif rot % 180.0 == 90.0:
+                dx, dy = length, width
+            else:
+                raise ValueError(f"anchor rotation {rot}: AVOD's anchors "
+                                 f"are axis-aligned (0 or 90 degrees)")
+            dims.append((dx, dy, height))
+            hr, hc = dx / 2.0 / t.x_div, dy / 2.0 / t.y_div
+            bases.append([math.ceil(-hc - 0.5), math.ceil(-hr - 0.5),
+                          math.ceil(hc - 0.5), math.ceil(hr - 0.5)])
+    rows = t.x_max - a.anchor_stride * np.arange(gh, dtype=np.float64)
+    cols = t.y_max - a.anchor_stride * np.arange(gw, dtype=np.float64)
+    cx = np.repeat(rows, gw * len(dims))
+    cy = np.tile(np.repeat(cols, len(dims)), gh)
+    d = np.tile(np.asarray(dims, np.float64), (gh * gw, 1))
+    anchors = np.stack([cx, cy, np.full_like(cx, a.ground_z), d[:, 0],
+                        d[:, 1], d[:, 2]], axis=1).astype(np.float32)
+    return anchors, np.asarray(bases, np.int64), stride, (gh, gw)
 
 
 def non_empty_anchor_mask(top_view: torch.Tensor, anchors,

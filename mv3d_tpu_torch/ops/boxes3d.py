@@ -6,6 +6,14 @@ drawing front-view projections, the regression encodings, ``box3d_compose`` /
 (``boxes3d_score_iou``) that the validation interleave scores with.
 Boxes3d are (..., 8, 3) corner arrays in lidar coordinates; corners 0-3 are
 the bottom face, 4-7 the top face.
+
+AVOD's encodings (``avod/core/{anchor,box_4c,orientation}_encoder.py``),
+written in the lidar frame over a flat ground plane at z = ``ground_z``:
+an *anchor* is an axis-aligned box (cx, cy, z_bottom, dx, dy, dz); a
+*box3d* (cx, cy, z_bottom, l, w, h, ry) has length l along the yaw ry;
+``box_4c`` is (x1..x4, y1..y4, h1, h2), the four BEV corners and the
+bottom and top heights above the ground; an orientation is the angle
+vector (cos ry, sin ry).
 """
 
 from __future__ import annotations
@@ -338,3 +346,184 @@ def boxes3d_score_iou(gt_boxes3d: np.ndarray, pre_boxes3d: np.ndarray,
     inter = float(np.sum(np.max(inters, axis=1)))
     union = gt_vol + pre_vol - inter
     return inter / union if union > 0 else 0.0
+
+
+# -- AVOD -------------------------------------------------------------------
+
+def anchor_corners(anchors: torch.Tensor) -> torch.Tensor:
+    """(..., 6) axis-aligned anchors -> (..., 8, 3) corners: the bottom face
+    (+x, +y), (+x, -y), (-x, -y), (-x, +y) about the centre, then the
+    top."""
+    cx, cy, zb, dx, dy, dz = anchors.to(torch.float32).unbind(-1)
+    hx, hy = dx / 2, dy / 2
+    xs = torch.stack([cx + hx, cx + hx, cx - hx, cx - hx], dim=-1)
+    ys = torch.stack([cy + hy, cy - hy, cy - hy, cy + hy], dim=-1)
+    bottom = torch.stack([xs, ys, zb[..., None].expand_as(xs)], dim=-1)
+    top = torch.stack([xs, ys, (zb + dz)[..., None].expand_as(xs)], dim=-1)
+    return torch.cat([bottom, top], dim=-2)
+
+
+def anchor_bev_boxes(anchors: torch.Tensor) -> torch.Tensor:
+    """(..., 6) anchors -> (..., 4) BEV boxes (x1, y1, x2, y2) in metres,
+    for the proposal NMS."""
+    cx, cy, _, dx, dy, _ = anchors.to(torch.float32).unbind(-1)
+    return torch.stack([cx - dx / 2, cy - dy / 2, cx + dx / 2, cy + dy / 2],
+                       dim=-1)
+
+
+def anchor_bev_norm(anchors: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """(..., 6) anchors -> (..., 4) crop boxes (y1, x1, y2, x2) on the BEV
+    map normalised by the grid's extent (row 0 at x_max, column 0 at
+    y_max), as AVOD's ``project_to_bev`` normalises them."""
+    t = cfg.top
+    cx, cy, _, dx, dy, _ = anchors.to(torch.float32).unbind(-1)
+    xr = torch.tensor(t.x_max - t.x_min, dtype=torch.float32,
+                      device=anchors.device)
+    yr = torch.tensor(t.y_max - t.y_min, dtype=torch.float32,
+                      device=anchors.device)
+    return torch.stack([(t.x_max - (cx + dx / 2)) / xr,
+                        (t.y_max - (cy + dy / 2)) / yr,
+                        (t.x_max - (cx - dx / 2)) / xr,
+                        (t.y_max - (cy - dy / 2)) / yr], dim=-1)
+
+
+def image_box_norm(corners: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """(..., 8, 3) lidar corners -> (..., 4) crop boxes (y1, x1, y2, x2) on
+    the image: the KITTI projection ([P|1] @ Mt @ Kt over depth, as
+    :func:`box3d_to_rgb_box`, unrounded) enveloped and normalised by
+    ``avod.calib_image_shape``, as AVOD's ``project_to_image_space``."""
+    dev = corners.device
+    b = corners.to(torch.float32)
+    ps = torch.cat([b, torch.ones_like(b[..., :1])], dim=-1)
+    mt = torch.tensor(cfg.matrix_mt, dtype=torch.float32, device=dev)
+    kt = torch.tensor(cfg.matrix_kt, dtype=torch.float32, device=dev)
+    qs = _affine(_affine(ps, mt)[..., :3], kt)
+    u = qs[..., 0] / qs[..., 2]
+    v = qs[..., 1] / qs[..., 2]
+    h, w = cfg.avod.calib_image_shape
+    hs = torch.tensor(float(h), dtype=torch.float32, device=dev)
+    ws = torch.tensor(float(w), dtype=torch.float32, device=dev)
+    return torch.stack([v.amin(-1) / hs, u.amin(-1) / ws,
+                        v.amax(-1) / hs, u.amax(-1) / ws], dim=-1)
+
+
+def anchor_decode(anchors: torch.Tensor, offsets: torch.Tensor
+                  ) -> torch.Tensor:
+    """AVOD's ``offset_to_anchor``: centre offsets scaled by the anchor's
+    extents, log-extent offsets: (..., 6) x (..., 6) -> (..., 6)."""
+    a = anchors.to(torch.float32)
+    t = offsets.to(torch.float32)
+    centre = t[..., :3] * a[..., 3:] + a[..., :3]
+    extent = torch.exp(torch.log(a[..., 3:]) + t[..., 3:])
+    return torch.cat([centre, extent], dim=-1)
+
+
+def anchor_to_box4c(anchors: torch.Tensor, ground_z: float) -> torch.Tensor:
+    """(..., 6) anchors -> (..., 10) box_4c: the BEV corners in
+    :func:`anchor_corners`' order, then the bottom and top heights above
+    the ground."""
+    c = anchor_corners(anchors)
+    h1 = anchors[..., 2].to(torch.float32) - ground_z
+    h2 = h1 + anchors[..., 5].to(torch.float32)
+    return torch.cat([c[..., :4, 0], c[..., :4, 1], h1[..., None],
+                      h2[..., None]], dim=-1)
+
+
+def box4c_to_box3d(box4c: torch.Tensor, ground_z: float) -> torch.Tensor:
+    """(..., 10) box_4c -> (..., 7) box3d (cx, cy, z_bottom, l, w, h, ry):
+    AVOD's ``box_4c_to_box_3d``. The longer of the two axes joining the
+    midpoints of opposite sides (1-2 against 3-4, 1-4 against 2-3) gives
+    the yaw; the corners' extents along it and across it give l and w
+    and the centre (the middle of each extent)."""
+    b = box4c.to(torch.float32)
+    p = torch.stack([b[..., 0:4], b[..., 4:8]], dim=-1)        # (..., 4, 2)
+    m12 = (p[..., 0, :] + p[..., 1, :]) / 2
+    m23 = (p[..., 1, :] + p[..., 2, :]) / 2
+    m34 = (p[..., 2, :] + p[..., 3, :]) / 2
+    m14 = (p[..., 0, :] + p[..., 3, :]) / 2
+    v1, v2 = m12 - m34, m14 - m23
+    n1, n2 = torch.linalg.vector_norm(v1, dim=-1), torch.linalg.vector_norm(
+        v2, dim=-1)
+    first = (n1 > n2)[..., None]
+    axis = torch.where(first, v1, v2)
+    base = torch.where(first, m34, m23)
+    u = axis / torch.where(first[..., 0], n1, n2)[..., None]
+    o = torch.stack([-u[..., 1], u[..., 0]], dim=-1)
+    rel = p - base[..., None, :]
+    along = (rel * u[..., None, :]).sum(-1)
+    across = (rel * o[..., None, :]).sum(-1)
+    lo_l, hi_l = along.amin(-1), along.amax(-1)
+    lo_w, hi_w = across.amin(-1), across.amax(-1)
+    centre = (base + u * ((lo_l + hi_l) / 2)[..., None]
+              + o * ((lo_w + hi_w) / 2)[..., None])
+    ry = torch.atan2(u[..., 1], u[..., 0])
+    zb = b[..., 8] + ground_z
+    return torch.stack([centre[..., 0], centre[..., 1], zb, hi_l - lo_l,
+                        hi_w - lo_w, b[..., 9] - b[..., 8], ry], dim=-1)
+
+
+def box3d_to_box4c(box3d: torch.Tensor, ground_z: float) -> torch.Tensor:
+    """(..., 7) box3d -> (..., 10) box_4c: AVOD's ``box_3d_to_box_4c``. The
+    yaw is split into its nearest multiple of 90 degrees, which turns the
+    box into an axis-aligned extent (l and w swapped at odd multiples),
+    and the rest, by which the extent's corners (in
+    :func:`anchor_corners`' order) are turned about the centre."""
+    b = box3d.to(torch.float32)
+    cx, cy, zb, length, width, height, ry = b.unbind(-1)
+    half_pi = torch.pi / 2
+    quarter = torch.round(ry / half_pi)
+    odd = torch.remainder(quarter, 2) == 1
+    # ry = 0 lays the length along x here
+    dx = torch.where(odd, width, length)
+    dy = torch.where(odd, length, width)
+    rest = ry - quarter * half_pi
+    hx, hy = dx / 2, dy / 2
+    lx = torch.stack([hx, hx, -hx, -hx], dim=-1)
+    ly = torch.stack([hy, -hy, -hy, hy], dim=-1)
+    c, s = torch.cos(rest)[..., None], torch.sin(rest)[..., None]
+    xs = c * lx - s * ly + cx[..., None]
+    ys = s * lx + c * ly + cy[..., None]
+    h1 = zb - ground_z
+    return torch.cat([xs, ys, h1[..., None], (h1 + height)[..., None]],
+                     dim=-1)
+
+
+def align_orientation(box3d: torch.Tensor, angle_vector: torch.Tensor
+                      ) -> torch.Tensor:
+    """``box_4ca``: the box's yaw turned to within 45 degrees of the
+    predicted angle vector's (cos, sin), the footprint unchanged: by 90
+    degrees with l and w swapped where the two lie 45-135 degrees apart, by
+    180 degrees where farther."""
+    b = box3d.to(torch.float32)
+    pred = torch.atan2(angle_vector[..., 1].float(),
+                       angle_vector[..., 0].float())
+    ry = b[..., 6]
+    diff = torch.remainder(pred - ry + torch.pi, 2 * torch.pi) - torch.pi
+    size = diff.abs()
+    swap = (size > torch.pi / 4) & (size < 3 * torch.pi / 4)
+    flip = size >= 3 * torch.pi / 4
+    turn = torch.where(swap, torch.sign(diff) * (torch.pi / 2),
+                       torch.where(flip, torch.pi, 0.0))
+    length = torch.where(swap, b[..., 4], b[..., 3])
+    width = torch.where(swap, b[..., 3], b[..., 4])
+    return torch.stack([b[..., 0], b[..., 1], b[..., 2], length, width,
+                        b[..., 5], ry + turn], dim=-1)
+
+
+def box3d_corners(box3d: torch.Tensor) -> torch.Tensor:
+    """(..., 7) box3d -> (..., 8, 3) corners: the bottom face (+l/2, +w/2),
+    (+l/2, -w/2), (-l/2, -w/2), (-l/2, +w/2) turned by ry about the centre,
+    then the top face h above it."""
+    b = box3d.to(torch.float32)
+    cx, cy, zb, length, width, height, ry = b.unbind(-1)
+    hl, hw = (length / 2)[..., None], (width / 2)[..., None]
+    sl = torch.tensor([1.0, 1.0, -1.0, -1.0], device=b.device)
+    sw = torch.tensor([1.0, -1.0, -1.0, 1.0], device=b.device)
+    lx, ly = hl * sl, hw * sw
+    c, s = torch.cos(ry)[..., None], torch.sin(ry)[..., None]
+    xs = c * lx - s * ly + cx[..., None]
+    ys = s * lx + c * ly + cy[..., None]
+    bottom = torch.stack([xs, ys, zb[..., None].expand_as(xs)], dim=-1)
+    top = torch.stack([xs, ys, (zb + height)[..., None].expand_as(xs)],
+                      dim=-1)
+    return torch.cat([bottom, top], dim=-2)

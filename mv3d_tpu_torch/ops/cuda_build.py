@@ -29,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = tuple(os.path.join(CSRC, f) for f in (
     "voxelize_sweep.cu", "voxelize_padded.cu", "voxelize_heights.cu",
-    "sort_radix.cu", "sort_merge.cu", "bn_relu.cu"))
+    "sort_radix.cu", "sort_merge.cu", "bn_relu.cu", "nms_topk.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

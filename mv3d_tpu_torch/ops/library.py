@@ -6,7 +6,9 @@
   * ``mv3d::stable_sort``      K4, :mod:`.sort_bitonic` (the radix kernel
     for rows up to 65,536, radix blocks plus merge passes above that);
   * ``mv3d::bn_relu``          eval-mode BatchNorm + ReLU in one pass,
-    :mod:`.bn_relu` (the epilogue of the model's conv and dense layers).
+    :mod:`.bn_relu` (the epilogue of the model's conv and dense layers);
+  * ``mv3d::nms_topk``         greedy NMS of score-sorted boxes up to
+    ``max_out`` kept, :mod:`.nms_topk` (AVOD's proposal and final NMS).
 
 Each operator has a CUDA implementation (the kernel's ctypes launch, which
 counts its launches as before), a CPU implementation (the kernel's plain
@@ -28,12 +30,12 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import (bn_relu, sort_bitonic, voxelize_heights, voxelize_padded,
-               voxelize_sweep)
+from . import (bn_relu, nms, nms_topk, sort_bitonic, voxelize_heights,
+               voxelize_padded, voxelize_sweep)
 
 NAMESPACE = "mv3d"
 OPS = ("voxelize_sweep", "voxelize_padded", "scatter_max", "stable_sort",
-       "bn_relu")
+       "bn_relu", "nms_topk")
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("voxelize_sweep(Tensor flat, Tensor hval, Tensor refl, "
@@ -47,6 +49,8 @@ _LIB.define("stable_sort(Tensor key, Tensor p1, Tensor p2) "
             "-> (Tensor, Tensor, Tensor)")
 _LIB.define("bn_relu(Tensor x, Tensor weight, Tensor bias, Tensor mean, "
             "Tensor var, float eps) -> Tensor")
+_LIB.define("nms_topk(Tensor boxes, Tensor scores, int max_out, "
+            "float iou_threshold, float offset) -> (Tensor, Tensor, Tensor)")
 
 
 def _fresh(outs, inputs: Sequence[torch.Tensor]):
@@ -81,6 +85,8 @@ _LIB.impl("stable_sort", sort_bitonic.bitonic_sort_kernel, "CUDA")
 _LIB.impl("stable_sort", _plain(sort_bitonic.bitonic_sort_plain, 3), "CPU")
 _LIB.impl("bn_relu", bn_relu.bn_relu_kernel, "CUDA")
 _LIB.impl("bn_relu", _plain(bn_relu.bn_relu_plain, 5), "CPU")
+_LIB.impl("nms_topk", nms_topk.nms_topk_kernel, "CUDA")
+_LIB.impl("nms_topk", nms.nms_sorted_plain, "CPU")
 
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -125,6 +131,16 @@ def _sort_fake(key, p1, p2) -> Triple:
 def _bn_relu_fake(x, weight, bias, mean, var, eps: float) -> torch.Tensor:
     bn_relu.check_inputs(x, weight, bias, mean, var)
     return torch.empty_like(x)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::nms_topk")
+def _nms_topk_fake(boxes, scores, max_out: int, iou_threshold: float,
+                   offset: float) -> Triple:
+    nms_topk.check_inputs(boxes, scores, max_out)
+    bsz = scores.shape[0]
+    return (scores.new_empty(bsz, max_out, dtype=torch.int32),
+            scores.new_empty(bsz, dtype=torch.int32),
+            scores.new_empty(bsz, dtype=torch.int32))
 
 
 def _bn_relu_setup(ctx, inputs, output) -> None:

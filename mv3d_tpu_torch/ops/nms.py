@@ -10,6 +10,15 @@ division-free as ``inter * (1 + t) > t * (area_i + area_j)``. Picks follow
 ``box_vote``, ``greedy_nms_np`` (the same rule and pick order) and the
 multi-class ``non_max_suppress`` are host numpy, copied from the JAX
 module (which imports jax).
+
+:func:`nms_topk` keeps the same boxes as :func:`greedy_nms` in one
+launch whatever ``max_out`` is: the scores are sorted (stably, so ties
+keep the first maximum), then the operator ``mv3d::nms_topk`` sweeps the
+sorted list until ``max_out`` are kept. Its CUDA implementation is the
+kernel (:mod:`.nms_topk`, ``csrc/nms_topk.cu``); its CPU implementation
+is :func:`nms_sorted_plain`, the same sweep in plain PyTorch ops. The
+rule takes an ``offset``: 1 for the "+1" pixel convention above, 0 for
+boxes in metres.
 """
 
 from __future__ import annotations
@@ -63,6 +72,73 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor,
         suppress = suppress_mat[rows, best] | (cols == best[:, None])
         live = torch.where(ok[:, None] & suppress, NEG_INF, live)
     return keep_idx, keep_mask
+
+
+def nms_sorted_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                     max_out: int, iou_threshold: float, offset: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy NMS over boxes (B, K, 4) already in descending score order
+    (B, K), stopping at ``max_out`` kept; a score not > -inf ends a
+    frame's valid boxes. Returns (keep (B, max_out) int32 sorted positions,
+    0 past the count; count (B,) int32; visited (B,) int32: the position
+    of the ``max_out``-th keep plus one, or the number of valid boxes).
+    The suppression rule is :func:`greedy_nms`'s with ``offset`` in place
+    of its "+1", in f32, each operation as there."""
+    bsz, k = scores.shape
+    boxes = boxes.to(torch.float32)
+    t = torch.tensor(iou_threshold, dtype=torch.float32)
+    keep = torch.zeros(bsz, max_out, dtype=torch.int32)
+    count = torch.zeros(bsz, dtype=torch.int32)
+    visited = torch.zeros(bsz, dtype=torch.int32)
+    for b in range(bsz):
+        n = int((scores[b] > -torch.inf).to(torch.int32).cumprod(0).sum())
+        x1, y1, x2, y2 = boxes[b, :n].cpu().unbind(-1)
+        area = (x2 - x1 + offset) * (y2 - y1 + offset)
+        kept: list = []
+        seen = n
+        for i in range(n):
+            if kept:
+                j = torch.tensor(kept)
+                iw = (torch.minimum(x2[j], x2[i]) - torch.maximum(x1[j], x1[i])
+                      + offset)
+                ih = (torch.minimum(y2[j], y2[i]) - torch.maximum(y1[j], y1[i])
+                      + offset)
+                inter = torch.clamp(iw, min=0.0) * torch.clamp(ih, min=0.0)
+                if bool((inter * (1.0 + t) > t * (area[j] + area[i])).any()):
+                    continue
+            kept.append(i)
+            if len(kept) == max_out:
+                seen = i + 1
+                break
+        keep[b, :len(kept)] = torch.tensor(kept, dtype=torch.int32)
+        count[b] = len(kept)
+        visited[b] = seen
+    return keep, count, visited
+
+
+def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float, max_out: int, offset: float = 1.0
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`greedy_nms`'s picks (with ``offset`` 1; 0 for boxes in
+    metres) in a fixed number of launches: the live scores sorted
+    descending, stably, then ``mv3d::nms_topk`` over the sorted boxes.
+    NaN scores count as invalid. Returns (keep_idx (B, max_out) int64
+    indices into the K candidates in pick order, 0 where keep_mask is
+    False; keep_mask (B, max_out) bool; visited (B,) int32, the sorted
+    candidates examined before ``max_out`` were kept, or the live ones)."""
+    live = torch.where(valid & ~torch.isnan(scores), scores.float(),
+                       -torch.inf)
+    sorted_scores, order = torch.sort(live, dim=1, descending=True,
+                                      stable=True)
+    sorted_boxes = torch.gather(boxes.float(), 1,
+                                order[..., None].expand(-1, -1, 4))
+    pos, count, visited = torch.ops.mv3d.nms_topk.default(
+        sorted_boxes.contiguous(), sorted_scores.contiguous(), max_out,
+        float(iou_threshold), float(offset))
+    keep_mask = (torch.arange(max_out, device=scores.device)[None]
+                 < count[:, None])
+    keep_idx = torch.gather(order, 1, pos.long())
+    return torch.where(keep_mask, keep_idx, 0), keep_mask, visited
 
 
 def nms_select(boxes: torch.Tensor, scores: torch.Tensor,

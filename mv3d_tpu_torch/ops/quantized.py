@@ -117,3 +117,27 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                  wq.permute(0, 2, 3, 1).reshape(cout, kh * kw * cin))
     return _dequantize(acc, sx, sw, out_dtype).reshape(
         b, ho, wo, cout).permute(0, 3, 1, 2)
+
+
+def conv_transpose_as_conv(w: torch.Tensor) -> torch.Tensor:
+    """A transposed conv's (in, out, k, k) weight as the (out, in, k, k)
+    weight of the conv over the zero-dilated input that computes it."""
+    return w.flip(2, 3).transpose(0, 1)
+
+
+def int8_conv_transpose(x: torch.Tensor, w: torch.Tensor, stride: int,
+                        out_dtype: torch.dtype = torch.bfloat16, group=None,
+                        qw=None) -> torch.Tensor:
+    """``F.conv_transpose2d(x, w, stride=stride)`` (no padding) with int8
+    operands: x (B, Cin, H, W) float, dilated by ``stride`` with zeros
+    (which leaves its int8 scale as it was), then :func:`int8_conv` with
+    the flipped kernel over k - 1 zeros a side; w (Cin, Cout, k, k) float;
+    ``qw``, if given, is ``quantize_weight(conv_transpose_as_conv(w))``.
+    Returns (B, Cout, (H - 1) s + k, (W - 1) s + k) in ``out_dtype``."""
+    if qw is None:
+        qw = quantize_weight(conv_transpose_as_conv(w))
+    b, c, h, wd = x.shape
+    k = w.shape[-1]
+    xd = x.new_zeros(b, c, (h - 1) * stride + 1, (wd - 1) * stride + 1)
+    xd[:, :, ::stride, ::stride] = x
+    return int8_conv(xd, qw[0], 1, (k - 1,) * 4, out_dtype, group, qw)

@@ -126,3 +126,55 @@ def roi_align_matmul(features: torch.Tensor, rois: torch.Tensor,
     big = torch.einsum("brpsh,bhwc->brpswc", wy.to(dtype), features)
     out = torch.einsum("brqtw,brpswc->brpqstc", wx.to(dtype), big)
     return out.mean(dim=(4, 5))
+
+
+def crop_and_resize(features: torch.Tensor, boxes: torch.Tensor,
+                    crop: int) -> torch.Tensor:
+    """(B, H, W, C) features x (B, R, 4) boxes -> (B, R, crop, crop, C)
+    f32: TensorFlow's ``tf.image.crop_and_resize`` (bilinear, extrapolation
+    value 0), the crops of AVOD. A box is (y1, x1, y2, x2) normalised so
+    that 0 and 1 are the map's first and last rows and columns; sample
+    (i, j) reads the map at ``y1 * (H - 1) + i * (y2 - y1) * (H - 1) /
+    (crop - 1)`` (the box's middle where crop is 1) and likewise in x, a
+    sample outside the map reads 0. The four taps are row gathers of the
+    (B*H*W, C) map, interpolated in f32 in TensorFlow's order (across x on
+    the top and bottom rows, then down y)."""
+    bsz, h, w, c = features.shape
+    r = boxes.shape[1]
+    dev = features.device
+    y1, x1, y2, x2 = boxes.to(torch.float32).unbind(-1)
+    steps = torch.arange(crop, dtype=torch.float32, device=dev)
+
+    def axis(lo, hi, size):
+        extent = f32c(size - 1, lo)
+        if crop == 1:
+            return ((lo + hi) * 0.5 * extent)[..., None]
+        scale = (hi - lo) * extent / f32c(crop - 1, lo)
+        return lo[..., None] * extent + steps * scale[..., None]
+
+    # a box projected from behind the camera may hold NaN: it reads 0
+    ys = torch.nan_to_num(axis(y1, y2, h), nan=-1.0)   # (B, R, crop)
+    xs = torch.nan_to_num(axis(x1, x2, w), nan=-1.0)
+    inside = (((ys >= 0) & (ys <= h - 1))[..., :, None]
+              & ((xs >= 0) & (xs <= w - 1))[..., None, :])
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy = (ys - y0)[..., :, None, None]
+    wx = (xs - x0)[..., None, :, None]
+    yt = torch.clamp(y0, 0, h - 1).to(torch.int64)
+    yb = torch.clamp(torch.ceil(ys), 0, h - 1).to(torch.int64)
+    xl = torch.clamp(x0, 0, w - 1).to(torch.int64)
+    xr = torch.clamp(torch.ceil(xs), 0, w - 1).to(torch.int64)
+    flat = features.reshape(bsz * h * w, c)
+    frame = (torch.arange(bsz, device=dev) * (h * w)).reshape(bsz, 1, 1, 1)
+
+    def tap(yi, xi):
+        idx = frame + yi[..., :, None] * w + xi[..., None, :]
+        return flat[idx].to(torch.float32)             # (B, R, crop, crop, C)
+
+    top_left, top_right = tap(yt, xl), tap(yt, xr)
+    bottom_left, bottom_right = tap(yb, xl), tap(yb, xr)
+    top = top_left + (top_right - top_left) * wx
+    bottom = bottom_left + (bottom_right - bottom_left) * wx
+    out = top + (bottom - top) * wy
+    return torch.where(inside[..., None], out, 0.0).reshape(
+        bsz, r, crop, crop, c)

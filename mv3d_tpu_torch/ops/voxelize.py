@@ -327,6 +327,36 @@ def lidar_to_top_batch(points: torch.Tensor, cfg: Config = _default_cfg,
     return top, occ.reshape(occ_shape)
 
 
+def lidar_to_bev_avod(points: torch.Tensor, cfg: Config,
+                      num_points: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, 4) -> AVOD's BEV (B, Xn, Yn, Zn + 1) in ``top_view_dtype``
+    and the (B, Xn, Yn) f32 point counts the anchor filter reads.
+
+    Channels 0..Zn-1: per-slice max height above the slice floor in slice
+    units, as :func:`lidar_to_top_batch`'s (the grid's z range is AVOD's
+    height band above the ground); Zn: ``min(1, log(count + 1) /
+    log(avod.density_log_base))`` (log 16). No intensity channel. The
+    fused sweep (K1) computes the heights and counts; its intensity
+    output goes unused."""
+    t = cfg.top
+    xn, yn, zn = t.xn, t.yn, t.zn
+    n_cells = xn * yn
+    bsz = points.shape[0]
+    _, _, flat, val, refl = _top_prep(points, cfg, num_points)
+    flat, val, refl = order_points(
+        flat, val, torch.where(flat < n_cells * zn, refl, 0.0), cfg)
+    view_dtype = getattr(torch, cfg.pipeline.top_view_dtype)
+    heights, counts, _ = scatter_top_fused_batched(
+        flat, val, refl, n_cells, zn, heights_dtype=view_dtype)
+    density = torch.clamp(torch.log(counts + 1.0) / f32c(
+        math.log(cfg.avod.density_log_base), counts), max=1.0)
+    bev = torch.cat([heights.reshape(bsz, n_cells, zn),
+                     density[..., None].to(view_dtype)], dim=2)
+    return (bev.reshape(bsz, xn, yn, zn + 1),
+            counts.reshape(bsz, xn, yn))
+
+
 def _top_s2d2p(points: torch.Tensor, cfg: Config,
                num_points: Optional[torch.Tensor], return_occ: bool):
     """The ``"s2d2p"`` branch of :func:`lidar_to_top_batch`: the lane-padded

@@ -56,10 +56,16 @@ answers to the host, which waits for the device) and
 ``mv3d.serve.program`` the network's stages are ranges
 ``mv3d.program.<stage>`` (``voxelize``, ``top_trunk``, ``rgb_trunk``,
 ``front_trunk`` with the front view, ``proposals``, ``roi_fusion``,
-``detect``): the export keeps each traced node's stage as node metadata
+``detect``; AVOD's are ``voxelize``, ``bev_pyramid``, ``img_pyramid``,
+``rpn``, ``proposal_nms``, ``second_stage`` and ``detect``): the export
+keeps each traced node's stage as node metadata
 (``torch.fx.traceback.annotate``) and :func:`load_serving` wraps each run
 of one stage in its range; an artifact without the metadata loads
 without them. Every kernel of the program is launched inside exactly one.
+An artifact whose program returns counters (``meta["counter_names"]``;
+AVOD's non-empty anchors and proposal-NMS visits a frame) records each
+request's sum over its frames with ``utils.profiling.count`` after the
+copy back, while a profiler runs.
 """
 
 from __future__ import annotations
@@ -74,10 +80,10 @@ import torch
 from torch.export.passes import move_to_device_pass
 
 from ..ops import library  # noqa: F401  (registers the mv3d:: operators)
-from ..config import Config
+from ..config import AvodConfig, Config
 from ..data.host_aux import within_budget
 from ..device import resolve_device
-from ..utils.profiling import add_stage_ranges, span, stage
+from ..utils.profiling import add_stage_ranges, count, span, stage
 
 _PROGRAM_FILE = "serving_fn.pt2"
 _WEIGHTS_FILE = "weights.npz"
@@ -124,9 +130,11 @@ def _tuples(v):
 
 def config_from_dict(d: Dict[str, Any], like=None):
     """Inverse of ``dataclasses.asdict`` on a :class:`Config`: each field
-    takes the type of ``like``'s (a default ``Config``), so JSON's lists
+    takes the type of ``like``'s (a default ``Config``, or
+    :class:`AvodConfig` for a tree with AVOD's settings), so JSON's lists
     become the tuples they were."""
-    like = Config() if like is None else like
+    if like is None:
+        like = AvodConfig() if "avod" in d else Config()
     names = {f.name for f in dataclasses.fields(like)}
     unknown = set(d) - names
     if unknown:
@@ -147,7 +155,9 @@ def build_serving_fn(cfg: Config, score_threshold: float = 0.05,
 
     ``fn(model, *inputs) -> (boxes3d, probs, mask)`` runs the lidar ->
     boxes pipeline on an :class:`~mv3d_tpu_torch.train.trainer.MV3D`
-    built at ``cfg``, on its device. Inputs (arrays or tensors):
+    built at ``cfg``, on its device; a network with counters
+    (``counter_names``, AVOD) also returns them, (B, n) int32. Inputs
+    (arrays or tensors):
 
       * default: ``points (B,N,4) f32``, ``num_points (B,) i32``,
         ``rgb (B,H,W,3) f32``;
@@ -160,9 +170,10 @@ def build_serving_fn(cfg: Config, score_threshold: float = 0.05,
     h, w, c = cfg.rgb_shape
 
     def run(model, points, num_points, rgb):
-        dets = model.predict_from_points(points, num_points, rgb,
-                                         score_threshold)
-        return dets.boxes3d, dets.probs, dets.mask
+        dets, counters = model.predict_from_points(
+            points, num_points, rgb, score_threshold, counters=True)
+        out = (dets.boxes3d, dets.probs, dets.mask)
+        return out if counters is None else out + (counters,)
 
     if quantized:
         from ..ops.quantize import dequantize_points
@@ -325,6 +336,10 @@ def export_serving(model, out_dir: str, batch_size: int = 1,
                         if quantized else ["points", "num_points", "rgb"]),
         "output_names": ["boxes3d", "probs", "mask"],
     }
+    counter_names = list(getattr(model.model, "counter_names", ()))
+    if counter_names:
+        meta["output_names"].append("counters")
+        meta["counter_names"] = counter_names
     if quantized:
         # the grid the host quantizes with: serving hosts need no config
         from ..ops.quantize import _bounds
@@ -348,8 +363,9 @@ class ServingModel:
         self.device = device
         self._dtypes = [_INPUT_DTYPES[n] for n in meta["input_names"]]
 
-    def __call__(self, *inputs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Raw batched call matching ``meta['input_names']``."""
+    def __call__(self, *inputs) -> Tuple[np.ndarray, ...]:
+        """Raw batched call matching ``meta['input_names']``; the arrays
+        of ``meta['output_names']``."""
         with torch.inference_mode():
             with span("mv3d.serve.h2d"):
                 args = [torch.from_numpy(np.ascontiguousarray(x, dt)).to(
@@ -400,9 +416,13 @@ class ServingModel:
                 b = self.meta["quant_bounds"]
                 with span("mv3d.serve.quantize"):
                     q, rq = quantize_points(pts, bounds=(b["lo"], b["hi"]))
-                boxes3d, probs, mask = self(q, rq, num, rgbs)
+                boxes3d, probs, mask, *counters = self(q, rq, num, rgbs)
             else:
-                boxes3d, probs, mask = self(pts, num, rgbs)
+                boxes3d, probs, mask, *counters = self(pts, num, rgbs)
+            for c in counters:
+                for name, col in zip(self.meta["counter_names"],
+                                     c[:len(frames)].T):
+                    count(name, int(col.sum()))
             with span("mv3d.serve.unpack"):
                 return [(boxes3d[i][mask[i]], probs[i][mask[i]])
                         for i in range(len(frames))]

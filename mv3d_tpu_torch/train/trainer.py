@@ -73,6 +73,7 @@ import torch
 from ..config import Config, cfg as _default_cfg
 from ..convert import load_variables, subnet_state_dict, subnet_variables
 from ..device import resolve_device
+from ..models.avod_net import AVODNet
 from ..models.mv3d_net import MV3DNet, total_loss
 from ..models.nets import SUBNET_NAMES, TOP_VIEW_RPN
 from ..ops import boxes3d as box3d_ops
@@ -80,7 +81,8 @@ from ..ops.boxes3d import boxes3d_score_iou
 from ..ops.detect import Detections, rcnn_nms
 from ..ops.proposal import rpn_proposals
 from ..ops.quantize import dequantize_points
-from ..ops.voxelize import lidar_to_front_batch, lidar_to_top_batch
+from ..ops.voxelize import (lidar_to_bev_avod, lidar_to_front_batch,
+                            lidar_to_top_batch)
 from ..utils.dashboard import render_dashboard
 from ..utils import viz
 from ..utils.logger import Logger
@@ -221,6 +223,17 @@ def lr_schedule(cfg: Config, lr: float):
     return schedule
 
 
+def build_network(cfg: Config):
+    """The network ``model.arch`` names: :class:`MV3DNet` ("mv3d") or
+    :class:`AVODNet` ("avod")."""
+    arch = cfg.model.arch
+    if arch == "mv3d":
+        return MV3DNet(cfg)
+    if arch == "avod":
+        return AVODNet(cfg)
+    raise ValueError(f"model.arch {arch!r}: expected 'mv3d' or 'avod'")
+
+
 class MV3D:
     """Model + weights on one device: batched inference and per-subnet
     checkpoints."""
@@ -238,7 +251,7 @@ class MV3D:
         self.tag = log_tag
         self.log_dir = log_dir
         self._logger: Optional[Logger] = None
-        self.model = MV3DNet(cfg)
+        self.model = build_network(cfg)
         if self._f32_master:
             self.model.master_weights_f32()
         if variables is None:
@@ -254,7 +267,7 @@ class MV3D:
         self.checkpointers = {
             name: SubnetCheckpointer(name, ckpt_dir,
                                      backend=checkpoint_backend)
-            for name in SUBNET_NAMES}
+            for name in self.model.subnets}
 
     def log(self, message: str) -> None:
         """Write to stdout and append to ``<log_dir>/log.txt`` (opened at
@@ -279,7 +292,7 @@ class MV3D:
 
     def save_weights(self, subnets: Optional[Sequence[str]] = None,
                      step: int = 0) -> None:
-        for name in (subnets or SUBNET_NAMES):
+        for name in (subnets or self.model.subnets):
             self.checkpointers[name].save(
                 subnet_variables(self.model.subnets[name].state_dict()), step)
 
@@ -287,7 +300,7 @@ class MV3D:
                      step: Optional[int] = None) -> None:
         """Restore the stored subnets; keep the current weights of those
         without a checkpoint."""
-        for name in (subnets or SUBNET_NAMES):
+        for name in (subnets or self.model.subnets):
             stored = self.checkpointers[name].load(step)
             if stored is None:
                 self.log(f"Load weights failed for {name}: no checkpoint, "
@@ -298,7 +311,7 @@ class MV3D:
             self.log(f"Load weights for {name} success!\n")
 
     def clean_weights(self, subnets: Optional[Sequence[str]] = None) -> None:
-        for name in (subnets or SUBNET_NAMES):
+        for name in (subnets or self.model.subnets):
             self.checkpointers[name].clean()
 
     def debug_dump(self, path: Optional[str] = None) -> str:
@@ -359,28 +372,38 @@ class MV3D:
     @torch.inference_mode()
     def predict_from_points(self, points, num_points, rgb,
                             score_threshold: Optional[float] = None,
-                            top_aux=None) -> Detections:
+                            top_aux=None, counters: bool = False):
         """Detection from raw padded lidar points (N, 4) or (B, N, 4), their
         valid counts and the rgb image(s): voxelize, then detect. With
         ``top_aux`` ((Xn, Yn, 2) or (B, Xn, Yn, 2), the host's
-        intensity/density plane) only the heights are computed here. The
-        voxelizers are the stage ``voxelize`` (``utils.profiling.stage``),
-        the network's stages follow (``MV3DNet.forward_inference``)."""
+        intensity/density plane; MV3D only) only the heights are computed
+        here. The voxelizers are the stage ``voxelize``
+        (``utils.profiling.stage``), the network's stages follow
+        (``MV3DNet.forward_inference``, ``AVODNet.forward_inference``).
+        Returns the :class:`Detections`; with ``counters``, also the
+        network's (B, len(counter_names)) int32 counters (None for a
+        network without them)."""
         if score_threshold is None:
             score_threshold = self.cfg.rcnn.score_threshold
         self.model.eval()
+        avod = self.cfg.model.arch == "avod"
         with stage("voxelize"):
             points = self._batch(points, 3)
             rgb = self._batch(rgb, 4)
             num = self._batch(num_points, 1, torch.int32)
-            aux = None if top_aux is None else self._batch(top_aux, 4)
-            top, occ = lidar_to_top_batch(points, self.cfg, num, aux=aux,
-                                          return_occ=True)
+            if avod:
+                top, occ = lidar_to_bev_avod(points, self.cfg, num)
+            else:
+                aux = None if top_aux is None else self._batch(top_aux, 4)
+                top, occ = lidar_to_top_batch(points, self.cfg, num, aux=aux,
+                                              return_occ=True)
             front = (lidar_to_front_batch(points, self.cfg, num)
                      if "front" in self.model.views else None)
-        dets, _ = self.model.forward_inference(
+        dets, aux_out = self.model.forward_inference(
             top, rgb, front, score_threshold=score_threshold, top_occ=occ)
-        return dets
+        if not counters:
+            return dets
+        return dets, (aux_out["counters"] if avod else None)
 
 
 class Predictor(MV3D):

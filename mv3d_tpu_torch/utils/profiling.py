@@ -21,6 +21,12 @@ span is a ``record_function`` range opened only while a profiler runs
                              ``front_trunk`` (with the front view),
                              ``proposals``, ``roi_fusion``, ``detect``.
 
+A counter (:func:`count`) is a zero-length range named
+``mv3d.count.<name>=<value>``, recorded only while a profiler runs:
+serving records AVOD's ``anchors`` (non-empty anchors) and
+``nms_visited`` (boxes the proposal NMS examined) summed over a request's
+frames.
+
 In a trace written by :func:`trace` they are ``user_annotation`` events;
 the kernels a range launched are those whose correlation id matches a
 runtime call made inside it. ``torch.export`` keeps no range, so
@@ -48,6 +54,7 @@ from torch.autograd.profiler import record_function
 _trace_ids = itertools.count()
 STAGE_KEY = "mv3d_stage"
 PROGRAM_RANGE = "mv3d.program."
+COUNT_RANGE = "mv3d.count."
 _OFF = contextlib.nullcontext()
 
 
@@ -77,6 +84,15 @@ def span(name: str):
     if autograd_profiler._is_profiler_enabled:
         return record_function(name)
     return _OFF
+
+
+def count(name: str, value: int) -> None:
+    """Record ``value`` of the counter ``name`` in a running profiler's
+    trace as the empty range ``mv3d.count.<name>=<value>``; nothing where
+    none runs."""
+    if autograd_profiler._is_profiler_enabled:
+        with record_function(f"{COUNT_RANGE}{name}={int(value)}"):
+            pass
 
 
 def stage(name: str):

@@ -164,12 +164,12 @@ from mv3d_tpu_torch.utils import (dashboard, datacheck, logger, macs,
 from mv3d_tpu_torch import tracking
 from mv3d_tpu_torch.tracking import seq_model, tracker, ukf
 from mv3d_tpu_torch.ops import (anchors, boxes, boxes3d, cuda_build, detect,
-                                library, nms, projection, proposal, quantize,
-                                quantized, roi_align, sort, sort_bitonic,
-                                voxelize,
+                                library, nms, nms_topk, projection, proposal,
+                                quantize, quantized, roi_align, sort,
+                                sort_bitonic, voxelize,
                                 voxelize_heights, voxelize_padded,
                                 voxelize_sweep)
-from mv3d_tpu_torch.models import backbone, mv3d_net, nets
+from mv3d_tpu_torch.models import avod_net, backbone, mv3d_net, nets
 from mv3d_tpu_torch.parallel import mesh
 from mv3d_tpu_torch.train import (augment, checkpoint, losses, targets,
                                   trainer)
@@ -249,6 +249,18 @@ assert frozen.meta["program"] == "serving_fn.pt2"
 assert frozen.predict(pts.astype(np.float32),
                       rng.rand(64, 96, 3).astype(np.float32))[0].shape[1:] \
     == (8, 3)
+acfg = mv3d_tpu_torch.avod_cars_config()
+acfg = dataclasses.replace(
+    acfg, top=dataclasses.replace(acfg.top, x_max=16.0, y_min=-6.0,
+                                  y_max=6.0),
+    rpn=dataclasses.replace(acfg.rpn, nms_post_topn=32),
+    pipeline=dataclasses.replace(acfg.pipeline, max_points=2048),
+    image_width=96, image_height=64)
+aart = serving.export_serving(trainer.MV3D(acfg, device="cpu", seed=0),
+                              d + "/avod", batch_size=1)
+assert serving.load_serving(aart, device="cpu").predict(
+    pts.astype(np.float32), rng.rand(64, 96, 3).astype(np.float32)
+)[0].shape[1:] == (8, 3)
 assert set(library.OPS) <= set(dir(torch.ops.mv3d))
 root = d + "/kitti"
 chip_smoke.write_kitti_dir(root, chip_smoke.SynthDrive(rng, cfg, 4, 3000),
@@ -303,7 +315,7 @@ print("ok")
 def test_port_never_imports_jax(tmp_path):
     """Every port module, its CLI and ``chip_smoke`` import, predict (the
     hwc and the s2d2p serving configuration, an int8 model, a tiny didi
-    preset and a
+    preset, a tiny AVOD served from its artifact and a
     model with every option: the reference graph's upsampling and 7x7
     stem, basic blocks, the VGG rgb trunk, siamese and learnable fusion),
     train, export an artifact
